@@ -1,0 +1,29 @@
+"""densebox_tpu_torch — the DenseBox detector on PyTorch and CUDA (NVIDIA H100).
+
+A port of ``densebox_tpu`` (JAX/Pallas), which stays beside it as the
+reference every module here is tested against. This package imports torch
+and never jax; from the JAX package it uses only the framework-free config
+and preset modules, re-exported here so that scripts need not name
+any ``densebox_tpu`` module (``densebox_tpu.serve.make_http_server`` serves
+the port's ``DetectServer`` as it is).
+
+Slice covered so far: the float (f32/bf16) det-only detect-and-serve path —
+model forward (models/), fixed-K decode and greedy NMS (ops/, with a
+hand-written CUDA NMS kernel under csrc/), the image pyramid (infer/) and the
+request-coalescing server (serve.py). See ROADMAP.md for the slices to come.
+
+Public functions take and return the JAX package's layouts: NHWC images and
+maps, (B, K, 4) xyxy boxes.
+"""
+
+__version__ = "0.1.0"
+
+from densebox_tpu.config import (  # noqa: F401
+    DenseBoxConfig,
+    InferCfg,
+    LabelCfg,
+    LossCfg,
+    ModelCfg,
+    TrainCfg,
+)
+from densebox_tpu.presets import kitti_vehicle, malf_face  # noqa: F401

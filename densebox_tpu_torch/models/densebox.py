@@ -1,0 +1,228 @@
+"""DenseBox model — eval forward in PyTorch.
+
+Port of ``densebox_tpu/models/densebox.py`` (the reference it is tested
+against): the VGG-FCN trunk of ``trunk_plan``, the x2 align-corners skip
+upsample, the fused det/loc[/lm] heads and the landmark refine branch.
+
+Only the JAX package's resolved defaults exist here, with no knob: skip
+fusion 'split' (each head conv1 is two sliced-weight products over f3 and
+the upsampled f4, the concat never built) and head_impl 'fused' (one conv1
+product over the Cout-concatenated weights, one block-diagonal conv2).
+Dropout is the identity in eval, so none of the training-side dropout or
+pool backends are needed.
+
+Layouts: the public forward takes NHWC images and returns NHWC float32 maps,
+as the JAX model does. Inside, the trunk runs on NCHW tensors in
+``channels_last`` memory, which is NHWC in memory, so every switch between
+the two views is a free ``permute``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from densebox_tpu.config import ModelCfg
+
+# (kind, name, base_width): the paper trunk, VGG19 through conv4_4.
+TRUNK_PLAN = (
+    ("conv", "conv1_1", 64), ("conv", "conv1_2", 64), ("pool", "pool1", 0),
+    ("conv", "conv2_1", 128), ("conv", "conv2_2", 128), ("pool", "pool2", 0),
+    ("conv", "conv3_1", 256), ("conv", "conv3_2", 256),
+    ("conv", "conv3_3", 256), ("conv", "conv3_4", 256),   # -> f3 (stride 4)
+    ("pool", "pool3", 0),
+    ("conv", "conv4_1", 512), ("conv", "conv4_2", 512),
+    ("conv", "conv4_3", 512), ("conv", "conv4_4", 512),   # -> f4 (stride 8)
+)
+
+
+def trunk_plan(cfg: ModelCfg) -> Tuple[Tuple[str, str, int], ...]:
+    """Trunk topology for a config (same plan as the JAX model): the paper
+    config is TRUNK_PLAN; stem 's2d' replaces pool1 by space-to-depth(2),
+    stem 's2d4' runs the whole trunk at stride 4 after space-to-depth(4),
+    and ``trunk_depth`` sets the convs per conv3/conv4 block."""
+    if cfg.stem == "conv" and cfg.trunk_depth == 4:
+        return TRUNK_PLAN
+    plan = []
+    if cfg.stem == "s2d4":
+        plan += [("s2d4", "s2d4", 0),
+                 ("conv", "conv1_1", 64), ("conv", "conv1_2", 64),
+                 ("conv", "conv2_1", 128), ("conv", "conv2_2", 128)]
+    elif cfg.stem == "s2d":
+        plan += [("s2d", "s2d", 0),
+                 ("conv", "conv1_1", 64), ("conv", "conv1_2", 64),
+                 ("conv", "conv2_1", 128), ("conv", "conv2_2", 128),
+                 ("pool", "pool2", 0)]
+    else:
+        plan += [("conv", "conv1_1", 64), ("conv", "conv1_2", 64),
+                 ("pool", "pool1", 0),
+                 ("conv", "conv2_1", 128), ("conv", "conv2_2", 128),
+                 ("pool", "pool2", 0)]
+    d = cfg.trunk_depth
+    plan += [("conv", f"conv3_{i + 1}", 256) for i in range(d)]
+    plan += [("pool", "pool3", 0)]
+    plan += [("conv", f"conv4_{i + 1}", 512) for i in range(d)]
+    return tuple(plan)
+
+
+def space_to_depth(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/r, W/r, C*r*r), channels ordered (dy, dx, c) as
+    in the JAX model. ``F.pixel_unshuffle`` orders them (c, dy, dx), which
+    would scramble the s2d stems' conv1_1 weights."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // r, r, w // r, r, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // r, w // r, c * r * r)
+
+
+def interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
+    """Dense (n_out, n_in) 1-D bilinear interpolation matrix with
+    align_corners=True semantics: output sample o reads input position
+    o * (n_in - 1) / (n_out - 1)."""
+    if n_in == 1:
+        return np.ones((n_out, 1), np.float32)
+    pos = np.arange(n_out, dtype=np.float64) * (n_in - 1) / max(n_out - 1, 1)
+    lo = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 2)
+    w = pos - lo
+    m = np.zeros((n_out, n_in), np.float64)
+    m[np.arange(n_out), lo] = 1.0 - w
+    m[np.arange(n_out), lo + 1] = w
+    return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(n_in: int, n_out: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``interp_matrix_align_corners`` on the device, made once per shape:
+    a blocking upload in every forward would stall the host until the
+    card drains its queue. A normal tensor even when first made under
+    inference mode, so that autograd may save it. Read-only."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(interp_matrix_align_corners(n_in, n_out)).to(
+            device, dtype)
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear upsample (align_corners) of an NHWC tensor as two
+    products with the interpolation matrices, W first as in the JAX model.
+    Returns a contiguous NHWC tensor. Batched products against the matrix
+    broadcast with stride 0, so that neither operand is copied or
+    transposed (``torch.matmul`` and ``einsum`` would transpose the large
+    activation)."""
+    b, h, w, c = x.shape
+    aw = _interp_matrix(w, 2 * w, x.device, x.dtype)
+    ah = _interp_matrix(h, 2 * h, x.device, x.dtype)
+    y = torch.bmm(aw.expand(b * h, 2 * w, w), x.reshape(b * h, w, c))
+    y = torch.bmm(ah.expand(b, 2 * h, h), y.reshape(b, h, 2 * w * c))
+    return y.reshape(b, 2 * h, 2 * w, c)
+
+
+def _nhwc_rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) channels_last -> (B*H*W, C) rows (a view when the
+    tensor really is channels_last)."""
+    return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+
+
+class DenseBox(nn.Module):
+    """The DenseBox FCN, eval forward. Parameter names follow the Flax tree
+    (``conv1_1``, ``det.det_conv1``, ``refine_out``, ...) so that
+    ``models.convert.from_flax`` loads a JAX checkpoint as it is.
+
+    Weights are held in ``cfg.compute_dtype`` (the JAX model casts its f32
+    params to that dtype at every use, which gives the same numbers).
+    Call with NHWC images (H, W divisible by ``cfg.min_divisor``); returns a
+    dict of stride-4 NHWC float32 maps: ``score`` (B, H/4, W/4, 1), ``loc``
+    (..., 4) and, with landmarks, ``lm`` (..., L) and ``refined`` (..., 1).
+    """
+
+    def __init__(self, cfg: ModelCfg, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = trunk_plan(cfg)
+        kw = dict(device=device, dtype=getattr(torch, cfg.compute_dtype))
+        cin, c3 = 3, None
+        for kind, name, width in self.plan:
+            if kind == "conv":
+                cout = cfg.scaled(width)
+                self.add_module(name, nn.Conv2d(cin, cout, 3, padding=1, **kw))
+                cin = cout
+                if name.startswith("conv3"):
+                    c3 = cout
+            elif kind in ("s2d", "s2d4"):
+                cin *= 4 if kind == "s2d" else 16
+        self.f3_tap = [n for k, n, _ in self.plan
+                       if k == "conv" and n.startswith("conv3")][-1]
+        feat = c3 + cin                     # f3 ++ upsampled f4 channels
+        width = cfg.scaled(cfg.head_width)
+        self.head_spec = [("det", 1), ("loc", 4)]
+        if cfg.num_landmarks:
+            self.head_spec.append(("lm", cfg.num_landmarks))
+        for pfx, oc in self.head_spec:
+            self.add_module(pfx, nn.ModuleDict({
+                f"{pfx}_conv1": nn.Conv2d(feat, width, 1, **kw),
+                f"{pfx}_conv2": nn.Conv2d(width, oc, 1, **kw)}))
+        if cfg.num_landmarks and cfg.use_refine:
+            rw = cfg.refine_width
+            self.refine_conv1 = nn.Conv2d(1 + cfg.num_landmarks, rw, 3,
+                                          padding=1, **kw)
+            self.refine_conv2 = nn.Conv2d(rw, rw, 3, padding=1, **kw)
+            self.refine_out = nn.Conv2d(rw, 1, 1, **kw)
+        self.to(memory_format=torch.channels_last)
+
+    def _heads(self, f3: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+        """All heads as one conv1 product (split over f3 / up) and one
+        block-diagonal conv2 product. f3 channels_last NCHW, up NHWC.
+        Returns (B, h, w, sum(out)) NHWC in the compute dtype."""
+        heads = [getattr(self, pfx) for pfx, _ in self.head_spec]
+        conv1 = [h[f"{p}_conv1"] for h, (p, _) in zip(heads, self.head_spec)]
+        conv2 = [h[f"{p}_conv2"] for h, (p, _) in zip(heads, self.head_spec)]
+        k1 = torch.cat([c.weight[:, :, 0, 0] for c in conv1])   # (n*W, Cin)
+        b1 = torch.cat([c.bias for c in conv1])
+        ca = f3.shape[1]
+        # bias and the second partial product accumulate in the GEMM epilogue
+        y = torch.addmm(b1, _nhwc_rows(f3), k1[:, :ca].t())
+        y = y.addmm_(up.reshape(-1, up.shape[-1]), k1[:, ca:].t()).relu_()
+        # (dropout is the identity in eval)
+        k2 = torch.block_diag(*[c.weight[:, :, 0, 0] for c in conv2])
+        b2 = torch.cat([c.bias for c in conv2])
+        z = torch.addmm(b2, y, k2.t())
+        b, _, h, w = f3.shape
+        return z.reshape(b, h, w, -1)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        if (images.shape[1] % cfg.min_divisor
+                or images.shape[2] % cfg.min_divisor):
+            raise ValueError(
+                f"input H,W must be divisible by {cfg.min_divisor}, "
+                f"got {tuple(images.shape)}")
+        dtype = getattr(torch, cfg.compute_dtype)
+        x = images.to(dtype).permute(0, 3, 1, 2)   # channels_last NCHW view
+        f3 = None
+        for kind, name, _ in self.plan:
+            if kind == "conv":
+                x = torch.relu(getattr(self, name)(x))
+                if name == self.f3_tap:
+                    f3 = x
+            elif kind in ("s2d", "s2d4"):
+                r = 2 if kind == "s2d" else 4
+                x = space_to_depth(x.permute(0, 2, 3, 1), r).permute(0, 3, 1, 2)
+            else:
+                x = F.max_pool2d(x, 2, 2)
+        up = upsample2x_align_corners(x.permute(0, 2, 3, 1))
+        z = self._heads(f3, up)
+        score, loc = z[..., 0:1], z[..., 1:5]
+        out = {"score": score.float(), "loc": loc.float()}
+        if cfg.num_landmarks:
+            lm = z[..., 5:5 + cfg.num_landmarks]
+            out["lm"] = lm.float()
+            if cfg.use_refine:
+                r = torch.cat([score, lm], dim=-1).permute(0, 3, 1, 2)
+                r = torch.relu(self.refine_conv1(r))
+                r = torch.relu(self.refine_conv2(r))
+                out["refined"] = self.refine_out(r).permute(0, 2, 3, 1).float()
+        return out

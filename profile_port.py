@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Where a device call of the port's serving path spends its time.
+
+    python3 profile_port.py [--calls 5]     # from the repository root, one CUDA card
+
+Prints one JSON line per probe, after the card's name and power limit:
+  cell        for each serving cell of chip_smoke.py (paper and turbo, B=8,
+              480x640 canvas, bf16, random weights): a device call (pinned
+              host batch -> detect -> results on the host) on the host clock
+              around a synchronised call (median, q1, q3 of 20), then a
+              torch.profiler trace of --calls calls: kernel time by kind,
+              the top kernels, and the device's idle share (1 - kernel time
+              / wall time of the traced calls);
+  fused_conv  the paper model's conv1_2 at B=8, 480x640, bf16: nn.Conv2d
+              and ReLU as the model runs them, against cuDNN's fused
+              conv+bias+ReLU (torch.cudnn_convolution_relu), by CUDA events,
+              alternated, with the largest difference of their outputs;
+  resize      infer/resize.py's einsum form against batched products on
+              NHWC as it lies, at each level of the paper cell's pyramid.
+Without a CUDA card it exits 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+from chip_smoke import (card_line, emit, init_model, median_ms, serving_cells,
+                        with_live_threshold)
+
+CANVAS = (8, 480, 640, 3)
+
+
+def kernel_kind(name: str) -> str:
+    """Bucket of a CUDA kernel (or copy) by its name in the trace."""
+    n = name.lower()
+    for kind, keys in (
+            ("nms_kernel", ("iou_mask", "sweep_kernel")),
+            ("sort", ("sort", "radix")),
+            ("max_pool", ("max_pool",)),
+            ("relu", ("clamp",)),
+            ("add", ("functor_add",)),        # mostly nn.Conv2d's bias
+            ("conv", ("conv", "cudnn", "implicit", "xmma_fprop")),
+            ("gemm", ("gemm", "cutlass", "matmul", "nvjet")),
+            ("copy", ("memcpy", "memset"))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def host_ms(fn, reps: int):
+    """Median, q1 and q3 host-clock ms of a call that ends synchronised."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return [float(np.median(times)), float(np.percentile(times, 25)),
+            float(np.percentile(times, 75))]
+
+
+def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from densebox_tpu_torch.infer import make_detect_fn
+
+    model = init_model(model_cfg, "cuda")
+    infer_cfg = with_live_threshold(model, host.cuda(), infer_cfg)
+    detect = make_detect_fn(model, infer_cfg, label_cfg)
+
+    def call():
+        out = detect(host.to("cuda", non_blocking=True))
+        return {k: v.cpu() for k, v in out.items()}
+
+    res = {"probe": "cell", "cell": name, "device_call_ms": host_ms(call, 20)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kind, top = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3 / calls
+        by_kind[kernel_kind(ev.key)] = by_kind.get(kernel_kind(ev.key), 0) + ms
+        top.append((ms, ev.count // calls, ev.key[:100]))
+    kernel = sum(by_kind.values())
+    res.update({"traced_calls": calls, "wall_ms_per_call": wall / calls,
+                "kernel_ms_per_call": kernel,
+                "device_idle_share": 1 - kernel * calls / wall,
+                "kernel_ms_per_call_by_kind": by_kind,
+                "top_kernels_ms_launches_per_call": sorted(top)[::-1][:12]})
+    return res
+
+
+def probe_fused_conv(model_cfg):
+    import torch
+
+    conv = init_model(model_cfg, "cuda").conv1_2
+    x = torch.rand(CANVAS[0], conv.in_channels, *CANVAS[1:3], device="cuda",
+                   dtype=conv.weight.dtype).to(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        def unfused():
+            return torch.relu(conv(x))
+
+        def fused():
+            return torch.cudnn_convolution_relu(
+                x, conv.weight, conv.bias, (1, 1), (1, 1), (1, 1), 1)
+
+        diff = float((unfused() - fused()).abs().max())
+        times = {"unfused": [], "fused": []}
+        for _ in range(2):
+            times["unfused"].append(median_ms(unfused, 20))
+            times["fused"].append(median_ms(fused, 20))
+    return {"probe": "fused_conv", "layer": "conv1_2",
+            "input": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+            "max_abs_diff": diff, "median_ms_alternated": times}
+
+
+def resize_products(images, hw):
+    """The alternative to ``resize_linear``: the same weights applied as
+    batched products on NHWC as it lies (the second has C = 3 columns)."""
+    from densebox_tpu_torch.infer.resize import _weights
+
+    b, h, w, c = images.shape
+    hs, ws = hw
+    y = images.contiguous()
+    if hs != h:
+        wt = _weights(h, hs, y.device, y.dtype)
+        y = (wt @ y.reshape(b, h, w * c)).reshape(b, hs, w, c)
+    if ws != w:
+        wt = _weights(w, ws, y.device, y.dtype)
+        y = (wt @ y.reshape(b * hs, w, c)).reshape(b, hs, ws, c)
+    return y
+
+
+def probe_resize(infer_cfg, host):
+    import torch
+
+    from densebox_tpu_torch.infer import pyramid_shapes, resize_linear
+
+    x = host.cuda()
+    out = {"probe": "resize", "input": list(x.shape)}
+    with torch.inference_mode():
+        for hs, ws, _, _ in pyramid_shapes(*CANVAS[1:3], infer_cfg.scales):
+            if (hs, ws) == CANVAS[1:3]:
+                continue
+            diff = float((resize_linear(x, (hs, ws))
+                          - resize_products(x, (hs, ws))).abs().max())
+            out[f"{hs}x{ws}"] = {
+                "einsum_ms": [median_ms(lambda: resize_linear(x, (hs, ws)), 20)
+                              for _ in range(2)],
+                "products_ms": [median_ms(lambda: resize_products(x, (hs, ws)),
+                                          20) for _ in range(2)],
+                "max_abs_diff": diff}
+    return out
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--calls", type=int, default=5,
+                    help="device calls in each cell's profiler trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_port: torch.cuda.is_available() is false; this "
+              "script runs only on a CUDA card", file=sys.stderr)
+        return 1
+    # as chip_smoke.py's serve phases run: f32 at full precision
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card_line(), flush=True)
+    host = torch.from_numpy(np.random.RandomState(0).rand(*CANVAS)
+                            .astype(np.float32)).pin_memory()
+    cells = serving_cells()
+    for name, *cfgs in cells:
+        emit(probe_cell(name, *cfgs, host, args.calls))
+    _, paper, paper_infer, _ = cells[0]
+    emit(probe_fused_conv(paper))
+    emit(probe_resize(paper_infer, host))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

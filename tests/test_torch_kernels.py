@@ -1,0 +1,164 @@
+"""The CUDA greedy-NMS kernel against its plain PyTorch version.
+
+These tests need a CUDA card (marker ``gpu``) and skip without one. This
+file imports no jax, so on a machine with a card and no JAX they run as
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+(``--noconftest``: tests/conftest.py configures jax). The box generators
+here are shared with test_torch_decode_nms.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from densebox_tpu_torch.ops.kernels import nms as knms
+from densebox_tpu_torch.ops.nms import nms
+
+
+def random_boxes(seed, b, k):
+    rng = np.random.RandomState(seed)
+    ctr = np.round(rng.uniform(0, 200, (b, k, 2)) / 25) * 25 \
+        + rng.normal(0, 4, (b, k, 2))
+    wh = rng.uniform(8, 60, (b, k, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    scores = np.round(rng.uniform(0.1, 1.0, (b, k)), 2).astype(np.float32)
+    valid = rng.rand(b, k) > 0.2
+    return boxes, scores, valid
+
+
+def threshold_boxes(seed, b, k, integer_frac=0.5):
+    """Pairs with IoU 0.5 in exact arithmetic: integer pairs, whose f32 IoU
+    is exactly 0.5 under any rounding (not suppressed), and float pairs
+    (shifted by a third of their width), which f32 rounds to either side."""
+    rng = np.random.RandomState(seed)
+    n = k // 2
+    x, y = rng.uniform(0, 300, (2, b, n))
+    w, h = rng.uniform(6, 60, (2, b, n))
+    integer = rng.rand(b, n) < integer_frac
+    x, y, h = (np.where(integer, np.round(v), v) for v in (x, y, h))
+    w = np.where(integer, 3 * np.maximum(np.round(w / 3), 1), w)
+    x, y, w, h = (v.astype(np.float32) for v in (x, y, w, h))
+    s = w / np.float32(3)
+    a = np.stack([x, y, x + w, y + h], -1)
+    p = np.stack([x + s, y, x + w + s, y + h], -1)
+    boxes = np.stack([a, p], 2).reshape(b, 2 * n, 4).astype(np.float32)
+    scores = np.tile(np.linspace(1, 0.01, 2 * n, dtype=np.float32), (b, 1))
+    return boxes, scores, np.ones((b, 2 * n), bool)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the NMS kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 256, 512, 1024])
+def test_kernel_matches_plain_version(cuda, k):
+    boxes, _, valid = random_boxes(k, 8, k)
+    tb, tv = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    before = knms.launches
+    got = knms.greedy_keep(tb, tv, 0.5)
+    torch.cuda.synchronize()
+    assert knms.launches == before + 1
+    want = knms.greedy_keep_reference(tb, tv, 0.5)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_threshold_pairs_and_nms(cuda):
+    for k in (256, 512):
+        boxes, scores, valid = threshold_boxes(k, 8, k)
+        args = [torch.from_numpy(a) for a in (boxes, scores, valid)]
+        want = nms(*args, iou_thresh=0.5, max_out=128, return_idx=True)
+        got = nms(*[a.to(cuda) for a in args], iou_thresh=0.5, max_out=128,
+                  return_idx=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_checks(cuda):
+    tb = torch.zeros(1, 1025, 4, device=cuda)
+    with pytest.raises(ValueError, match="K <= 1024"):
+        knms.greedy_keep(tb, torch.ones(1, 1025, dtype=torch.bool,
+                                        device=cuda), 0.5)
+    with pytest.raises(TypeError):
+        knms.greedy_keep(tb[:, :8].half(), torch.ones(1, 8, dtype=torch.bool,
+                                                      device=cuda), 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        knms.greedy_keep(torch.zeros(1, 4, 8, device=cuda).transpose(1, 2),
+                         torch.ones(1, 8, dtype=torch.bool, device=cuda), 0.5)
+
+
+def _greedy_python(boxes, valid, thresh):
+    """The greedy sweep written out pair by pair, in numpy float32."""
+    f32 = np.float32
+    keep = valid.copy()
+    area = (np.maximum(boxes[:, 2] - boxes[:, 0], f32(0))
+            * np.maximum(boxes[:, 3] - boxes[:, 1], f32(0)))
+    for i in range(len(boxes)):
+        if not keep[i]:
+            continue
+        for j in range(i + 1, len(boxes)):
+            iw = np.maximum(np.minimum(boxes[i, 2], boxes[j, 2])
+                            - np.maximum(boxes[i, 0], boxes[j, 0]), f32(0))
+            ih = np.maximum(np.minimum(boxes[i, 3], boxes[j, 3])
+                            - np.maximum(boxes[i, 1], boxes[j, 1]), f32(0))
+            inter = iw * ih
+            iou = inter / np.maximum(area[i] + area[j] - inter, f32(1e-9))
+            if iou > f32(thresh):
+                keep[j] = False
+    return keep
+
+
+@pytest.mark.parametrize("make", [random_boxes, threshold_boxes])
+def test_reference_matches_pairwise_greedy(make):
+    boxes, _, valid = make(3, 2, 96)
+    got = knms.greedy_keep_reference(torch.from_numpy(boxes),
+                                     torch.from_numpy(valid), 0.5)
+    want = np.stack([_greedy_python(boxes[i], valid[i], 0.5)
+                     for i in range(2)])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.gpu
+def test_detect_on_card_matches_cpu(cuda):
+    """The whole det path (resize, forward, decode, kernel NMS) on the card
+    against the CPU run, f32 with TF32 off; boxes to 1e-2 px (cuDNN's
+    summation order moves maps by ~1e-6)."""
+    from densebox_tpu.config import InferCfg, LabelCfg, ModelCfg
+    from densebox_tpu_torch.infer import make_detect_fn
+    from densebox_tpu_torch.models import DenseBox, init_params
+
+    cfg = ModelCfg(width_mult=0.25)
+    sd = init_params(cfg, torch.Generator().manual_seed(0))
+    infer = InferCfg(score_thresh=0.0, topk_per_scale=128, pre_nms_topk=256,
+                     max_dets=32)
+    img = torch.from_numpy(np.random.RandomState(0).rand(2, 96, 128, 3)
+                           .astype(np.float32))
+    out = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            model = DenseBox(cfg, device=dev)
+            model.load_state_dict(sd)
+            out[str(dev)] = {k: v.cpu() for k, v in make_detect_fn(
+                model, infer, LabelCfg())(img.to(dev)).items()}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    want, got = out["cpu"], out["cuda"]
+    assert want["valid"].any()
+    assert torch.equal(got["valid"], want["valid"])
+    v = want["valid"]
+    torch.testing.assert_close(got["boxes"][v], want["boxes"][v],
+                               atol=1e-2, rtol=0)
+    torch.testing.assert_close(got["scores"][v], want["scores"][v],
+                               atol=1e-4, rtol=0)

@@ -1,0 +1,101 @@
+"""The port's scripts (chip_smoke.py, profile_port.py) and the modules the
+port names, checked without a card.
+
+The scripts' device work runs only on a CUDA card. What holds here: no
+script names jax or any module of the JAX package (the port re-exports the
+config and presets it needs), the package names only the JAX package's
+framework-free config and presets, both scripts refuse to run without CUDA,
+and the plain functions of profile_port.py do what its report says.
+"""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+SCRIPTS = ["chip_smoke.py", "profile_port.py"]
+PACKAGE = sorted(os.path.relpath(p, REPO) for p in glob.glob(
+    os.path.join(REPO, "densebox_tpu_torch", "**", "*.py"), recursive=True))
+# jax-free modules of the JAX package that the port's package may import
+PACKAGE_MAY_IMPORT = {"densebox_tpu.config", "densebox_tpu.presets"}
+
+
+def _imported(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SCRIPTS + PACKAGE)
+def test_names_no_jax_module(path):
+    allowed = PACKAGE_MAY_IMPORT if path in PACKAGE else set()
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in ("jax", "flax", "jaxlib")
+           or (m.split(".")[0] == "densebox_tpu" and m not in allowed)]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_script_refuses_without_cuda(script):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the script would run in full")
+    res = subprocess.run([sys.executable, script], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert res.stdout == ""
+    assert "torch.cuda.is_available() is false" in res.stderr
+
+
+def test_resize_products_equal_resize_linear():
+    """The alternative that profile_port.py times against the kept resize
+    computes the same result."""
+    from densebox_tpu_torch.infer import pyramid_shapes, resize_linear
+    from profile_port import resize_products
+
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 96, 128, 3)
+                         .astype(np.float32))
+    for hs, ws, _, _ in pyramid_shapes(96, 128, (0.5, 0.7071, 1.4142)):
+        torch.testing.assert_close(resize_products(x, (hs, ws)),
+                                   resize_linear(x, (hs, ws)),
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("iou_mask_kernel(float4 const*, int, int, float)", "nms_kernel"),
+    ("sweep_kernel(unsigned long long const*, unsigned char const*)",
+     "nms_kernel"),
+    ("void at::native::radixSortKVInPlace<2, -1, 32, 32, float, long>",
+     "sort"),
+    ("void at::native::(anonymous namespace)::max_pool_forward_nhwc"
+     "<c10::BFloat16, int>", "max_pool"),
+    ("void at::native::vectorized_elementwise_kernel<8, at::native::"
+     "(anonymous namespace)::launch_clamp_scalar", "relu"),
+    ("void at::native::elementwise_kernel<128, 4, at::native::"
+     "gpu_kernel_impl_nocast<at::native::CUDAFunctor_add<c10", "add"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv"),
+    ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop",
+     "conv"),
+    ("void cutlass::Kernel2<cutlass_75_tensorop_bf16_s1688gemm_bf16_64x64",
+     "gemm"),
+    ("nvjet_tst_256x128_64x4_1x2_h_badd_coopA_TNT", "gemm"),
+    ("Memcpy HtoD (Pinned -> Device)", "copy"),
+    ("void at::native::index_elementwise_kernel<128, 4>", "other"),
+])
+def test_kernel_kind(name, kind):
+    from profile_port import kernel_kind
+
+    assert kernel_kind(name) == kind
