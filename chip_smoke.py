@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detect-and-serve path once on an NVIDIA GPU.
+"""Drive the PyTorch port's detect-and-serve paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -7,7 +7,8 @@ Phases (each prints one JSON line; any failure raises, so the exit code is
 not 0):
   1. no card, no run: without CUDA the script exits 1 with no result;
   2. the card's name and power limit (nvidia-smi);
-  3. build the CUDA NMS kernel from densebox_tpu_torch/csrc with nvcc;
+  3. build the CUDA kernels (NMS, int8 conv, requant) from
+     densebox_tpu_torch/csrc, one nvcc per source, all at once;
   4. NMS kernel against its plain PyTorch version on the card (B=8,
      K in {256, 512, 1024}, random boxes and IoU-on-threshold pairs: keep
      masks, indices, boxes and scores identical), with median times;
@@ -16,9 +17,22 @@ not 0):
   6. serve: a DetectServer with the paper model in bf16, 480x640 canvas,
      max_batch 8, the preset's 4-scale pyramid; 24 requests from 8 threads,
      answered, coalesced, and equal to a direct detect of the same images;
-  7. the same serve run with the turbo trunk (s2d4, depth 3, width 0.25).
-The kernel launch counter is reset just before each serve run's requests
-and must have grown by the end of it. The line before the last lists the
+  7. the same serve run with the turbo trunk (s2d4, depth 3, width 0.25);
+  8. int8 conv kernel against its plain version on the card, in its three
+     output modes, at the turbo model's layer shapes (B=8), paper shapes
+     and ragged edges: outputs identical; median times at turbo conv3_2;
+  9. requant kernel against its plain version (B=8, 120x160x64, int8 and
+     f32 outputs): identical; median times;
+ 10. the paper model in int8, calibrated on the card: its forward on the
+     card against the plain versions on the CPU with the same int8 state
+     (B=2, 240x320): every int8 code and map identical; the fused and the
+     hybrid chain identical on the card;
+ 11. serve the turbo model in int8 (calibrated on the card from the canvas
+     batch, one scale), as phase 7: served equal to direct, one int8 conv
+     launch per conv per device call, one NMS launch per device call;
+ 12. the same with the hybrid chain (int32 conv, then requant).
+Each serve run resets every kernel's launch counter just before its
+requests and reads them just after. The line before the last lists the
 kernels, after the card line again; the last line is
 {"ok": true, "device": {...}}.
 
@@ -36,10 +50,13 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+KERNELS = ("nms", "qconv", "requant")     # csrc/<name>.cu
 
 
 def emit(obj) -> None:
@@ -75,12 +92,15 @@ def phase_build():
     from densebox_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    lib = build.build("nms")
-    build.load("nms")
-    log = lib.with_suffix(".log").read_text().splitlines()
-    emit({"phase": "build", "kernel": "nms", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for ln in log
-                    if "registers" in ln or "Compiling entry" in ln]})
+    with ThreadPoolExecutor(len(KERNELS)) as pool:     # one nvcc per source
+        libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    for name, lib in libs.items():
+        build.load(name)
+        log = lib.with_suffix(".log").read_text().splitlines()
+        emit({"phase": "build", "kernel": name,
+              "seconds_all": time.perf_counter() - t0,
+              "ptxas": [ln.strip() for ln in log
+                        if "registers" in ln or "Compiling entry" in ln]})
 
 
 def random_case(rng, b, k):
@@ -238,6 +258,171 @@ def phase_forward():
         raise AssertionError("bf16 forward produced non-finite maps")
 
 
+# (name, B, H, W, Cin, Cout, k): the turbo model's int8 convs at the serving
+# batch (s2d4 conv1_1, conv3_2, conv4_2, head conv1 and loc conv2), paper
+# conv1_1 and conv4_2 (B=2 keeps the plain version short), then ragged
+# edges: W=33, H not a multiple of the 8-row tile, Cin=5
+QCONV_CASES = [
+    ("turbo_conv1_1", 8, 120, 160, 48, 16, 3),
+    ("turbo_conv3_2", 8, 120, 160, 64, 64, 3),
+    ("turbo_conv4_2", 8, 60, 80, 128, 128, 3),
+    ("turbo_head_conv1", 8, 120, 160, 192, 128, 1),
+    ("turbo_loc_conv2", 8, 120, 160, 128, 4, 1),
+    ("paper_conv1_1", 2, 240, 320, 3, 64, 3),
+    ("paper_conv4_2", 2, 30, 40, 512, 512, 3),
+    ("ragged", 3, 13, 33, 5, 24, 3),
+]
+
+
+def qconv_inputs(rng, b, h, w, cin, cout, k, dev):
+    """Int8 activations and weights over the whole code range, and epilogue
+    vectors that put y at a few units, so that int8 outputs round and
+    clip."""
+    import torch
+
+    x = rng.randint(-127, 128, (b, h, w, cin)).astype(np.int8)
+    wq = rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8)
+    spread = 127.0 * 127.0 * np.sqrt(k * k * cin)
+    vecs = [rng.uniform(1.0, 3.0, cout) / spread, rng.uniform(-0.5, 0.5, cout),
+            rng.uniform(20.0, 40.0, cout)]
+    return [torch.from_numpy(a).to(dev)
+            for a in [x, wq] + [v.astype(np.float32) for v in vecs]]
+
+
+def phase_qconv():
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import qconv as kq
+
+    rng = np.random.RandomState(5)
+    results, err, timed = [], 0.0, None
+    for name, *shape in QCONV_CASES:
+        x, wq, scale, bias, osc = qconv_inputs(rng, *shape, "cuda")
+        modes = {"int8": dict(out_scale=osc), "f32": dict(relu=False),
+                 "int32": dict(out="int32")}
+        row = {"case": name, "shape": shape}
+        for mode, kw in modes.items():
+            got = kq.qconv_int8(x, wq, scale, bias, **kw)
+            want = kq.qconv_reference(x, wq, scale, bias, **kw)
+            torch.cuda.synchronize()
+            diff = float((got.double() - want.double()).abs().max())
+            row[mode] = {"equal": bool(torch.equal(got, want)),
+                         "max_abs_err": diff}
+            err = max(err, diff)
+            if not row[mode]["equal"]:
+                emit({"phase": "qconv_kernel", "results": results + [row]})
+                raise AssertionError(f"int8 conv kernel disagrees with its "
+                                     f"plain version ({name}, {mode})")
+        results.append(row)
+        if name == "turbo_conv3_2":
+            args = (x, wq, scale, bias, osc)
+            timed = (median_ms(lambda: kq.qconv_int8(*args), 50),
+                     median_ms(lambda: kq.qconv_reference(*args), 10))
+    emit({"phase": "qconv_kernel", "results": results, "max_abs_err": err,
+          "median_ms": {"turbo_conv3_2_int8_B8": {"kernel": timed[0],
+                                                  "plain": timed[1]}}})
+    return err, timed
+
+
+def phase_requant():
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import requant as kr
+
+    rng = np.random.RandomState(6)
+    shape = (8, 120, 160, 64)
+    acc = torch.from_numpy(rng.randint(-2 ** 20, 2 ** 20, shape)
+                           .astype(np.int32)).cuda()
+    scale, bias, osc = (torch.from_numpy(v.astype(np.float32)).cuda() for v in (
+        rng.uniform(1e-6, 3e-6, 64), rng.uniform(-0.5, 0.5, 64),
+        rng.uniform(20, 40, 64)))
+    results, err, times = {}, 0.0, {}
+    for mode, o in (("int8", osc), ("f32", None)):
+        got = kr.requant_epilogue(acc, scale, bias, o)
+        want = kr.requant_reference(acc, scale, bias, o)
+        torch.cuda.synchronize()
+        diff = float((got.double() - want.double()).abs().max())
+        results[mode] = {"equal": bool(torch.equal(got, want)),
+                         "max_abs_err": diff}
+        err = max(err, diff)
+        args = (acc, scale, bias, o)
+        times[mode] = (median_ms(lambda: kr.requant_epilogue(*args), 50),
+                       median_ms(lambda: kr.requant_reference(*args), 20))
+    emit({"phase": "requant_kernel", "input": list(shape), "results": results,
+          "max_abs_err": err,
+          "median_ms": {f"{m}_B8": {"kernel": t[0], "plain": t[1]}
+                        for m, t in times.items()}})
+    if not all(r["equal"] for r in results.values()):
+        raise AssertionError(f"requant kernel disagrees with its plain "
+                             f"version: {results}")
+    return err, times["int8"]
+
+
+def recorded_forward(model, x):
+    """``model(x)`` and every int8 conv / requant output it made, in order."""
+    import torch
+
+    from densebox_tpu_torch.models import quant as mq
+
+    outs = []
+
+    def recording(fn):
+        def wrapped(*args, **kw):
+            y = fn(*args, **kw)
+            outs.append(y)
+            return y
+        return wrapped
+
+    with mock.patch.object(mq, "qconv_int8", recording(mq.qconv_int8)), \
+            mock.patch.object(mq, "requant_epilogue",
+                              recording(mq.requant_epilogue)), \
+            torch.inference_mode():
+        maps = model(x)
+    return maps, outs
+
+
+def phase_forward_int8():
+    import torch
+
+    from densebox_tpu_torch import QuantDenseBox, kitti_vehicle
+
+    cfg = dataclasses.replace(kitti_vehicle().model, compute_dtype="bfloat16")
+    x = torch.from_numpy(np.random.RandomState(7).rand(2, 240, 320, 3)
+                         .astype(np.float32))
+    gpu = init_quant_model(cfg, x.cuda())               # calibrated on the card
+    cpu = QuantDenseBox(cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    hybrid = QuantDenseBox(cfg, backend="hybrid", device="cuda").eval()
+    hybrid.load_state_dict(gpu.state_dict())
+    t0 = time.perf_counter()
+    want, want_q = recorded_forward(cpu, x)
+    cpu_s = time.perf_counter() - t0
+    got, got_q = recorded_forward(gpu, x.cuda())
+    hyb, _ = recorded_forward(hybrid, x.cuda())
+    torch.cuda.synchronize()
+    codes = [(g.cpu(), w) for g, w in zip(got_q, want_q)
+             if w.dtype == torch.int8]
+    n_codes = sum(w.numel() for _, w in codes)
+    n_diff = sum(int((g != w).sum()) for g, w in codes)
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in want}
+    same = {k: bool(torch.equal(got[k].cpu(), want[k])) for k in want}
+    fused_eq_hybrid = {k: bool(torch.equal(got[k], hyb[k])) for k in got}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    emit({"phase": "forward_int8", "model": "kitti_vehicle w1.0 int8",
+          "input": list(x.shape), "convs": len(got_q),
+          "int8_codes_compared": n_codes, "int8_codes_differing": n_diff,
+          "maps_equal": same, "max_abs_err": errs,
+          "max_abs_value": {k: float(v.abs().max()) for k, v in want.items()},
+          "fused_equals_hybrid": fused_eq_hybrid, "finite": finite,
+          "cpu_plain_seconds": cpu_s})
+    if not finite or n_diff or not all(same.values()):
+        raise AssertionError("int8 forward on the card differs from the "
+                             "plain versions on the CPU")
+    if not all(fused_eq_hybrid.values()):
+        raise AssertionError(f"fused and hybrid int8 chains differ on the "
+                             f"card: {fused_eq_hybrid}")
+
+
 def request_images(n, canvas_hw, seed):
     rng = np.random.RandomState(seed)
     hc, wc = canvas_hw
@@ -267,30 +452,57 @@ def mismatch(res, boxes, scores):
     return out
 
 
-def phase_serve(name, model_cfg, infer_cfg, label_cfg, canvas_hw=(480, 640),
-                n_req=24, n_threads=8):
+def init_quant_model(cfg, calib, backend="fused", seed=0):
+    """The int8 model of the float model ``init_model`` makes, calibrated
+    on ``calib`` (on its device)."""
+    import torch
+
+    from densebox_tpu_torch.models import (QuantDenseBox, init_params,
+                                           quantize_densebox)
+
+    float_sd = init_params(cfg, torch.Generator().manual_seed(seed))
+    sd = quantize_densebox(float_sd, cfg, calib)
+    model = QuantDenseBox(cfg, backend=backend, device=calib.device)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def kernel_modules():
+    from densebox_tpu_torch.ops.kernels import nms, qconv, requant
+
+    return {"nms": nms, "qconv": qconv, "requant": requant}
+
+
+def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
+                canvas_hw=(480, 640), n_req=24, n_threads=8):
+    """Serve ``n_req`` requests from ``n_threads`` clients with the float
+    model, or with ``quant`` ('fused' or 'hybrid') its int8 model calibrated
+    on the first canvas batch. Returns the kernels' launch counts."""
     import torch
 
     from densebox_tpu_torch.infer import candidates
-    from densebox_tpu_torch.ops.kernels import nms as knms
+    from densebox_tpu_torch.models.quant import conv_names
     from densebox_tpu_torch.ops.nms import nms
     from densebox_tpu_torch.serve import DetectServer
 
-    model = init_model(model_cfg, "cuda")
     imgs = request_images(n_req, canvas_hw, seed=3)
     canvas = np.zeros((8,) + tuple(canvas_hw) + (3,), np.float32)
     for i in range(8):
         h, w = imgs[i].shape[:2]
         canvas[i, :h, :w] = imgs[i]
     canvas_t = torch.from_numpy(canvas).cuda()
+    model = (init_quant_model(model_cfg, canvas_t, quant) if quant
+             else init_model(model_cfg, "cuda"))
     infer_cfg = with_live_threshold(model, canvas_t, infer_cfg)
     thresh = infer_cfg.score_thresh
 
     server = DetectServer(model, infer_cfg, label_cfg, canvas_hw=canvas_hw,
                           max_batch=8, batch_window_ms=15.0)
     results, lat = [None] * n_req, [None] * n_req
+    kernels = kernel_modules()
     try:
-        knms.reset_launches()
+        for mod in kernels.values():
+            mod.reset_launches()
         t0 = time.perf_counter()
 
         def client(tid):
@@ -306,7 +518,7 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, canvas_hw=(480, 640),
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t0
-        launches = knms.launches
+        launches = {k: mod.launches for k, mod in kernels.items()}
         stats = dict(server.stats)
     finally:
         server.close()
@@ -327,8 +539,15 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, canvas_hw=(480, 640),
     n_out = [len(r["boxes"]) for r in results]
     finite = all(np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
                  for r in results)
+    calls = stats["device_calls"]
+    # one int8 conv per conv of the model, and with the hybrid chain one
+    # requant after each; the float model launches neither
+    n_conv = len(conv_names(model_cfg)) if quant else 0
+    want = {"nms": calls, "qconv": n_conv * calls,
+            "requant": n_conv * calls if quant == "hybrid" else 0}
     emit({"phase": name, "requests": stats["requests"],
-          "device_calls": stats["device_calls"], "nms_launches": launches,
+          "device_calls": calls, "launches": launches,
+          "launches_expected": want,
           "score_thresh": thresh,
           "nms_in_per_image": cand[2].sum(1).tolist(),
           "nms_out_per_request": n_out,
@@ -340,11 +559,11 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, canvas_hw=(480, 640),
     if diffs:
         raise AssertionError(f"{name}: served detections differ from a "
                              f"direct detect of the same canvases: {diffs}")
-    if not stats["device_calls"] < stats["requests"] == n_req:
+    if not calls < stats["requests"] == n_req:
         raise AssertionError(f"{name}: requests were not coalesced: {stats}")
-    if launches < 1 or launches != stats["device_calls"]:
-        raise AssertionError(f"{name}: NMS kernel launches {launches} for "
-                             f"{stats['device_calls']} device calls")
+    if calls < 1 or launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches} for "
+                             f"{calls} device calls, want {want}")
     return launches
 
 
@@ -356,10 +575,14 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    import densebox_tpu_torch  # noqa: F401  (alone, without the repo: fail here, silent)
 
     # f32 parity runs at full f32, as the JAX reference's Precision.HIGHEST
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products (the int8 path's x2 upsample) reduce in f32 as on the
+    # CPU, so that the card matches the CPU bit for bit
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     card = card_line()
     print(card, flush=True)
@@ -372,14 +595,31 @@ def main() -> int:
 
     launches = {name: phase_serve(f"serve_{name}_bf16", *cfgs)
                 for name, *cfgs in serving_cells()}
+    q_err, (q_ms, q_plain_ms) = phase_qconv()
+    r_err, (r_ms, r_plain_ms) = phase_requant()
+    phase_forward_int8()
+    _, turbo, turbo_infer, label = serving_cells()[1]
+    for quant in ("fused", "hybrid"):
+        launches[quant] = phase_serve(f"serve_turbo_int8_{quant}", turbo,
+                                      turbo_infer, label, quant=quant)
 
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "greedy_nms_keep", "route": "cuda",
-        "source": "densebox_tpu_torch/csrc/nms.cu",
-        "replaces": "densebox_tpu/ops/pallas/nms.py:28",
-        "launches": launches["paper"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}]})
+    emit({"kernels": [
+        {"name": "greedy_nms_keep", "route": "cuda",
+         "source": "densebox_tpu_torch/csrc/nms.cu",
+         "replaces": "densebox_tpu/ops/pallas/nms.py:28",
+         "launches": launches["paper"]["nms"], "max_abs_err": err,
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "qconv_int8", "route": "cuda",
+         "source": "densebox_tpu_torch/csrc/qconv.cu",
+         "replaces": "densebox_tpu/ops/pallas/qconv.py:59",
+         "launches": launches["fused"]["qconv"], "max_abs_err": q_err,
+         "ms": q_ms, "plain_ms": q_plain_ms},
+        {"name": "requant_epilogue", "route": "cuda",
+         "source": "densebox_tpu_torch/csrc/requant.cu",
+         "replaces": "densebox_tpu/ops/pallas/requant.py:35",
+         "launches": launches["hybrid"]["requant"], "max_abs_err": r_err,
+         "ms": r_ms, "plain_ms": r_plain_ms}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

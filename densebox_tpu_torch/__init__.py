@@ -7,9 +7,11 @@ and preset modules, re-exported here so that scripts need not name
 any ``densebox_tpu`` module (``densebox_tpu.serve.make_http_server`` serves
 the port's ``DetectServer`` as it is).
 
-Slice covered so far: the float (f32/bf16) det-only detect-and-serve path —
-model forward (models/), fixed-K decode and greedy NMS (ops/, with a
-hand-written CUDA NMS kernel under csrc/), the image pyramid (infer/) and the
+Slices covered so far: the float (f32/bf16) and the int8 post-training
+quantised det-only detect-and-serve paths — model forwards (models/, the
+int8 one on hand-written CUDA int8-conv and requant kernels), fixed-K decode
+and greedy NMS (ops/, with a hand-written CUDA NMS kernel; the kernel
+sources are under csrc/), the image pyramid (infer/) and the
 request-coalescing server (serve.py). See ROADMAP.md for the slices to come.
 
 Public functions take and return the JAX package's layouts: NHWC images and
@@ -27,3 +29,11 @@ from densebox_tpu.config import (  # noqa: F401
     TrainCfg,
 )
 from densebox_tpu.presets import kitti_vehicle, malf_face  # noqa: F401
+from densebox_tpu_torch.models import (  # noqa: F401
+    DenseBox,
+    QuantDenseBox,
+    from_flax,
+    init_params,
+    qparams_from_jax,
+    quantize_densebox,
+)

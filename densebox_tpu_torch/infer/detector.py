@@ -91,8 +91,8 @@ def candidates(model, images: torch.Tensor, infer_cfg: InferCfg,
 
 def detect_batch(model, images: torch.Tensor, infer_cfg: InferCfg,
                  label_cfg: LabelCfg) -> Dict[str, torch.Tensor]:
-    """Full pyramid detect on a (B, H, W, 3) batch with ``model``'s weights,
-    on the images' device. Returns boxes (B, max_dets, 4), scores
+    """Full pyramid detect on a (B, H, W, 3) batch with ``model``'s weights
+    (``DenseBox`` or the int8 ``QuantDenseBox``), on the images' device. Returns boxes (B, max_dets, 4), scores
     (B, max_dets), valid (B, max_dets). ``infer_cfg.nms_backend`` is not
     read: on the card NMS is always the CUDA kernel."""
     boxes, scores, valid = candidates(model, images, infer_cfg, label_cfg)

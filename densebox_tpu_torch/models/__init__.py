@@ -1,6 +1,14 @@
-from densebox_tpu_torch.models.convert import from_flax, init_params  # noqa: F401
+from densebox_tpu_torch.models.convert import (  # noqa: F401
+    from_flax,
+    init_params,
+    qparams_from_jax,
+)
 from densebox_tpu_torch.models.densebox import (  # noqa: F401
     DenseBox,
     space_to_depth,
     trunk_plan,
+)
+from densebox_tpu_torch.models.quant import (  # noqa: F401
+    QuantDenseBox,
+    quantize_densebox,
 )

@@ -1,4 +1,5 @@
-"""Weights for the port's DenseBox: from a Flax param tree, or fresh.
+"""Weights for the port's DenseBox: from a Flax param tree, or fresh; and
+the int8 model's state from the JAX package's qparams.
 
 ``from_flax`` maps the JAX model's parameter tree onto the port's
 ``state_dict``: the same names with '.' for '/' (``det/det_conv1`` ->
@@ -17,6 +18,7 @@ import torch
 
 from densebox_tpu.config import ModelCfg
 from densebox_tpu_torch.models.densebox import DenseBox
+from densebox_tpu_torch.models.quant import QuantDenseBox
 
 # std of a unit normal truncated to [-2, 2]: flax's he_normal divides by it
 # so that the truncated draw keeps variance 2 / fan_in
@@ -39,6 +41,18 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _check_matches(sd: Dict[str, torch.Tensor], want: Dict[str, torch.Size],
+                   what: str) -> None:
+    if set(sd) != set(want):
+        raise ValueError(
+            f"{what} does not match the config: missing "
+            f"{sorted(set(want) - set(sd))}, extra {sorted(set(sd) - set(want))}")
+    for k, shape in want.items():
+        if sd[k].shape != shape:
+            raise ValueError(f"{k}: shape {tuple(sd[k].shape)} in the {what}, "
+                             f"{tuple(shape)} for the config")
+
+
 def from_flax(params: Mapping, cfg: ModelCfg) -> Dict[str, torch.Tensor]:
     """Flax params (``{'params': {...}}`` or the inner tree; numpy or any
     array ``np.asarray`` takes) -> a float32 ``state_dict`` for
@@ -55,15 +69,29 @@ def from_flax(params: Mapping, cfg: ModelCfg) -> Dict[str, torch.Tensor]:
             sd[f"{stem}.bias"] = torch.from_numpy(np.array(arr, np.float32))
         else:
             raise ValueError(f"unexpected Flax leaf {name!r}")
-    want = _expected(cfg)
-    if set(sd) != set(want):
-        raise ValueError(
-            f"Flax tree does not match the config: missing "
-            f"{sorted(set(want) - set(sd))}, extra {sorted(set(sd) - set(want))}")
-    for k, shape in want.items():
-        if sd[k].shape != shape:
-            raise ValueError(f"{k}: shape {tuple(sd[k].shape)} in the Flax "
-                             f"tree, {tuple(shape)} for the config")
+    _check_matches(sd, _expected(cfg), "Flax tree")
+    return sd
+
+
+def qparams_from_jax(qparams: Mapping, cfg: ModelCfg
+                     ) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 qparams (``quantize_densebox``'s tree; numpy
+    or any array ``np.asarray`` takes) -> the ``state_dict`` of
+    ``QuantDenseBox(cfg)``: names with '.' for '/', ``w_q`` HWIO -> the
+    kernel's (Cout, k, k, Cin) int8, ``w_scale``, ``in_scale``, ``bias`` and
+    ``f4_scale`` float32. Raises if names or shapes do not match the
+    config."""
+    sd = {}
+    for name, arr in _flatten(qparams).items():
+        name = name.replace("/", ".")
+        if name.endswith(".w_q"):
+            sd[name] = torch.from_numpy(
+                np.array(np.transpose(arr, (3, 0, 1, 2)), np.int8))
+        else:
+            sd[name] = torch.from_numpy(np.array(arr, np.float32))
+    want = {k: v.shape for k, v in
+            QuantDenseBox(cfg, device="meta").state_dict().items()}
+    _check_matches(sd, want, "qparams tree")
     return sd
 
 

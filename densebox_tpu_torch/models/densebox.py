@@ -121,6 +121,14 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, 2 * h, 2 * w, c)
 
 
+def check_divisible(cfg: ModelCfg, images: torch.Tensor) -> None:
+    """Raise unless the NHWC images' H and W are multiples of
+    ``cfg.min_divisor`` (the trunk's pooling)."""
+    if images.shape[1] % cfg.min_divisor or images.shape[2] % cfg.min_divisor:
+        raise ValueError(f"input H,W must be divisible by {cfg.min_divisor}, "
+                         f"got {tuple(images.shape)}")
+
+
 def _nhwc_rows(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) channels_last -> (B*H*W, C) rows (a view when the
     tensor really is channels_last)."""
@@ -195,11 +203,7 @@ class DenseBox(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        if (images.shape[1] % cfg.min_divisor
-                or images.shape[2] % cfg.min_divisor):
-            raise ValueError(
-                f"input H,W must be divisible by {cfg.min_divisor}, "
-                f"got {tuple(images.shape)}")
+        check_divisible(cfg, images)
         dtype = getattr(torch, cfg.compute_dtype)
         x = images.to(dtype).permute(0, 3, 1, 2)   # channels_last NCHW view
         f3 = None

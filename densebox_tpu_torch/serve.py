@@ -17,6 +17,7 @@ takes this server as it is (it only calls ``submit`` and reads ``stats``).
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -30,12 +31,16 @@ from densebox_tpu_torch.infer.detector import make_detect_fn
 
 class DetectServer:
     """Request-coalescing wrapper around the port's detect function, on the
-    device that holds ``model``'s weights."""
+    device that holds ``model``'s weights (``DenseBox`` or the int8
+    ``QuantDenseBox``)."""
 
     def __init__(self, model, infer_cfg, label_cfg,
                  canvas_hw: Tuple[int, int] = (480, 640),
                  max_batch: int = 8, batch_window_ms: float = 15.0):
-        self.device = next(model.parameters()).device
+        # the int8 model keeps all its state in buffers, the float one in
+        # parameters
+        self.device = next(itertools.chain(model.parameters(),
+                                           model.buffers())).device
         self.canvas_hw = canvas_hw
         self.max_batch = max_batch
         self.window_s = batch_window_ms / 1e3
@@ -45,7 +50,7 @@ class DetectServer:
         hc, wc = canvas_hw
         self._host = torch.zeros((max_batch, hc, wc, 3), dtype=torch.float32,
                                  pin_memory=self.device.type == "cuda")
-        # warm-up: the first call builds the NMS kernel and sets up cuDNN
+        # warm-up: the first call builds the kernels and sets up cuDNN
         self._detect(torch.zeros((max_batch, hc, wc, 3), device=self.device))
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()

@@ -5,9 +5,12 @@
 
 Prints one JSON line per probe, after the card's name and power limit:
   cell        for each serving cell of chip_smoke.py (paper and turbo, B=8,
-              480x640 canvas, bf16, random weights): a device call (pinned
-              host batch -> detect -> results on the host) on the host clock
-              around a synchronised call (median, q1, q3 of 20), then a
+              480x640 canvas, bf16, random weights) and for turbo_int8 and
+              turbo_int8_hybrid (the turbo model in int8, calibrated on the
+              profiled batch; fused and hybrid chain): a device call
+              (pinned host batch -> detect -> results on the host) on the
+              host clock around a synchronised call (median, q1, q3 of
+              20), then a
               torch.profiler trace of --calls calls: kernel time by kind,
               the top kernels, and the device's idle share (1 - kernel time
               / wall time of the traced calls);
@@ -28,8 +31,8 @@ import time
 
 import numpy as np
 
-from chip_smoke import (card_line, emit, init_model, median_ms, serving_cells,
-                        with_live_threshold)
+from chip_smoke import (card_line, emit, init_model, init_quant_model,
+                        median_ms, serving_cells, with_live_threshold)
 
 CANVAS = (8, 480, 640, 3)
 
@@ -39,6 +42,8 @@ def kernel_kind(name: str) -> str:
     n = name.lower()
     for kind, keys in (
             ("nms_kernel", ("iou_mask", "sweep_kernel")),
+            ("int8_conv_kernel", ("qconv_kernel",)),
+            ("requant_kernel", ("requant_kernel",)),
             ("sort", ("sort", "radix")),
             ("max_pool", ("max_pool",)),
             ("relu", ("clamp",)),
@@ -67,13 +72,15 @@ def host_ms(fn, reps: int):
             float(np.percentile(times, 75))]
 
 
-def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls):
+def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls,
+               quant=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from densebox_tpu_torch.infer import make_detect_fn
 
-    model = init_model(model_cfg, "cuda")
+    model = (init_quant_model(model_cfg, host.cuda(), quant) if quant
+             else init_model(model_cfg, "cuda"))
     infer_cfg = with_live_threshold(model, host.cuda(), infer_cfg)
     detect = make_detect_fn(model, infer_cfg, label_cfg)
 
@@ -188,6 +195,11 @@ def main(argv=None) -> int:
     cells = serving_cells()
     for name, *cfgs in cells:
         emit(probe_cell(name, *cfgs, host, args.calls))
+    _, turbo, turbo_infer, label = cells[1]
+    for name, quant in (("turbo_int8", "fused"),
+                        ("turbo_int8_hybrid", "hybrid")):
+        emit(probe_cell(name, turbo, turbo_infer, label, host, args.calls,
+                        quant=quant))
     _, paper, paper_infer, _ = cells[0]
     emit(probe_fused_conv(paper))
     emit(probe_resize(paper_infer, host))

@@ -1,4 +1,5 @@
-"""The CUDA greedy-NMS kernel against its plain PyTorch version.
+"""The CUDA kernels (greedy NMS, int8 conv, requant epilogue) against their
+plain PyTorch versions.
 
 These tests need a CUDA card (marker ``gpu``) and skip without one. This
 file imports no jax, so on a machine with a card and no JAX they run as
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from densebox_tpu_torch.ops.kernels import nms as knms
+from densebox_tpu_torch.ops.kernels import qconv as kqconv
+from densebox_tpu_torch.ops.kernels import requant as krequant
 from densebox_tpu_torch.ops.nms import nms
 
 
@@ -51,7 +54,7 @@ def threshold_boxes(seed, b, k, integer_frac=0.5):
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the NMS kernel has no CPU mode)")
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -162,3 +165,85 @@ def test_detect_on_card_matches_cpu(cuda):
                                atol=1e-2, rtol=0)
     torch.testing.assert_close(got["scores"][v], want["scores"][v],
                                atol=1e-4, rtol=0)
+
+
+def qconv_case(seed, b, h, w, cin, cout, k):
+    """Random int8 activations and weights over the whole code range, and
+    epilogue vectors that put y at a few units, so that int8 outputs both
+    round and clip. numpy arrays: x (B, H, W, Cin), w (Cout, k, k, Cin),
+    scale, bias, out_scale (Cout,)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-127, 128, (b, h, w, cin)).astype(np.int8)
+    wq = rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8)
+    spread = 127.0 * 127.0 * np.sqrt(k * k * cin)
+    scale = (rng.uniform(1.0, 3.0, cout) / spread).astype(np.float32)
+    bias = rng.uniform(-0.5, 0.5, cout).astype(np.float32)
+    out_scale = rng.uniform(20.0, 40.0, cout).astype(np.float32)
+    return x, wq, scale, bias, out_scale
+
+
+# (B, H, W, Cin, Cout, k): aligned and ragged tiles (W=33, H not a multiple
+# of the 8-row tile), channel tails (Cin 3, 5), every channel block (Cout 1,
+# 4, 16, 32, 64 and 130), Cin over several 32-channel chunks
+QCONV_SHAPES = [
+    (2, 16, 32, 16, 16, 3), (1, 12, 33, 5, 4, 3), (2, 9, 17, 3, 64, 3),
+    (1, 8, 24, 72, 130, 3), (2, 16, 33, 40, 32, 1), (1, 13, 20, 128, 1, 1),
+    (1, 7, 9, 192, 64, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", QCONV_SHAPES, ids=str)
+@pytest.mark.parametrize("mode", ["int8", "f32", "int32"])
+def test_qconv_kernel_matches_plain_version(cuda, shape, mode):
+    x, wq, scale, bias, osc = (torch.from_numpy(a).to(cuda)
+                               for a in qconv_case(sum(shape), *shape))
+    kw = dict(out="int32") if mode == "int32" else {}
+    osc = osc if mode == "int8" else None
+    before = kqconv.launches
+    got = kqconv.qconv_int8(x, wq, scale, bias, osc, relu=mode != "f32", **kw)
+    torch.cuda.synchronize()
+    assert kqconv.launches == before + 1
+    want = kqconv.qconv_reference(x, wq, scale, bias, osc,
+                                  relu=mode != "f32", **kw)
+    assert got.dtype == want.dtype == {"int8": torch.int8, "f32": torch.float32,
+                                       "int32": torch.int32}[mode]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "f32"])
+def test_requant_kernel_matches_plain_version(cuda, mode):
+    rng = np.random.RandomState(7)
+    for shape in [(2, 9, 17, 64), (1, 5, 7, 3), (3, 1)]:
+        acc = torch.from_numpy(rng.randint(-2 ** 27, 2 ** 27, shape)
+                               .astype(np.int32)).to(cuda)
+        cout = shape[-1]
+        scale = torch.from_numpy(rng.uniform(1e-8, 3e-8, cout)
+                                 .astype(np.float32)).to(cuda)
+        bias = torch.from_numpy(rng.uniform(-0.5, 0.5, cout)
+                                .astype(np.float32)).to(cuda)
+        osc = (torch.tensor(31.5, device=cuda) if mode == "int8" else None)
+        for relu in (True, False):
+            before = krequant.launches
+            got = krequant.requant_epilogue(acc, scale, bias, osc, relu=relu)
+            torch.cuda.synchronize()
+            assert krequant.launches == before + 1
+            want = krequant.requant_reference(acc, scale, bias, osc, relu=relu)
+            assert got.dtype == want.dtype
+            assert torch.equal(got, want), (shape, relu)
+
+
+@pytest.mark.gpu
+def test_int8_wrapper_checks(cuda):
+    x = torch.zeros(1, 8, 8, 16, dtype=torch.int8, device=cuda)
+    w = torch.zeros(4, 3, 3, 16, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        kqconv.qconv_int8(x.float(), w, 1.0, 0.0)
+    with pytest.raises(ValueError, match="k in"):
+        kqconv.qconv_int8(x, torch.zeros(4, 2, 2, 16, dtype=torch.int8,
+                                         device=cuda), 1.0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kqconv.qconv_int8(x.transpose(1, 2), w, 1.0, 0.0)
+    with pytest.raises(ValueError, match="int32"):
+        krequant.requant_epilogue(torch.zeros(2, 4, device=cuda), 1.0, 0.0)

@@ -77,6 +77,10 @@ def test_resize_products_equal_resize_linear():
     ("iou_mask_kernel(float4 const*, int, int, float)", "nms_kernel"),
     ("sweep_kernel(unsigned long long const*, unsigned char const*)",
      "nms_kernel"),
+    ("void (anonymous namespace)::qconv_kernel<3, 64>(signed char const*, "
+     "signed char const*, float const*)", "int8_conv_kernel"),
+    ("void (anonymous namespace)::requant_kernel<int>(int const*, float "
+     "const*)", "requant_kernel"),
     ("void at::native::radixSortKVInPlace<2, -1, 32, 32, float, long>",
      "sort"),
     ("void at::native::(anonymous namespace)::max_pool_forward_nhwc"
