@@ -7,7 +7,7 @@ Phases (each prints one JSON line; any failure raises, so the exit code is
 not 0):
   1. no card, no run: without CUDA the script exits 1 with no result;
   2. the card's name and power limit (nvidia-smi);
-  3. build the CUDA kernels (NMS, int8 conv, requant) from
+  3. build the CUDA kernels (NMS, int8 conv, requant, window gather) from
      densebox_tpu_torch/csrc, one nvcc per source, all at once;
   4. NMS kernel against its plain PyTorch version on the card (B=8,
      K in {256, 512, 1024}, random boxes and IoU-on-threshold pairs: keep
@@ -16,7 +16,8 @@ not 0):
      port on the CPU (TF32 off; 1e-3 absolute), then a bf16 forward;
   6. serve: a DetectServer with the paper model in bf16, 480x640 canvas,
      max_batch 8, the preset's 4-scale pyramid; 24 requests from 8 threads,
-     answered, coalesced, and equal to a direct detect of the same images;
+     answered, coalesced, and each equal to a direct detect_batch of the
+     batch its device call ran;
   7. the same serve run with the turbo trunk (s2d4, depth 3, width 0.25);
   8. int8 conv kernel against its plain version on the card, in its three
      output modes, at the turbo model's layer shapes (B=8), paper shapes
@@ -30,7 +31,25 @@ not 0):
  11. serve the turbo model in int8 (calibrated on the card from the canvas
      batch, one scale), as phase 7: served equal to direct, one int8 conv
      launch per conv per device call, one NMS launch per device call;
- 12. the same with the hybrid chain (int32 conv, then requant).
+ 12. the same with the hybrid chain (int32 conv, then requant);
+ 13. window-gather kernel against its plain version on the card, bitwise:
+     the MALF serve shape (B=8, S=5, L=5, 170x228, D=64, win 32, bf16 and
+     f32, per-landmark origins), the bench's lm4 shape (B=8, S=1, L=4,
+     120x160, shared origins) and a ragged one (win 17, odd map, D=5);
+     median times at the first two;
+ 14. landmark decode, card against CPU: the malf_face() model (width 1.0,
+     5 landmarks, refine) in bf16 runs its 5-scale pyramid once on the card
+     (B=2, 240x320); everything after the forward (decode, cap, NMS, scale
+     selection, landmark decode) then runs on those maps on the card and on
+     the CPU: boxes, scores, validity and landmarks identical, and the
+     'std' scale selection counted where it differs;
+ 15. serve malf_face() in bf16 (480x640 canvas, max_batch 8, its pyramid
+     and anchors, lm_topk 64), as phase 6: served equal to a direct
+     detect_batch bit for bit, landmarks included; one NMS and one window
+     launch per device call;
+ 16. serve the bench's landmark pipeline in int8: the turbo trunk with 4
+     landmarks and refine, no anchors (shared origins), calibrated on the
+     card, one scale: as phase 15, plus one int8 conv launch per conv.
 Each serve run resets every kernel's launch counter just before its
 requests and reads them just after. The line before the last lists the
 kernels, after the card line again; the last line is
@@ -38,7 +57,10 @@ kernels, after the card line again; the last line is
 
 Weights are random (torch.Generator seeds), so detections are not
 meaningful objects: the score threshold of the serve phases is set from
-the model's own score map so that candidates reach NMS.
+the model's own score map (the refine branch's, where it has one) so that
+candidates reach NMS, and the landmark phases give the loc head a bias of
+one so that boxes span a few map pixels (near-zero random loc maps give
+boxes of a pixel, whose landmarks all take the centre fallback).
 """
 
 from __future__ import annotations
@@ -56,7 +78,7 @@ from unittest import mock
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("nms", "qconv", "requant")     # csrc/<name>.cu
+KERNELS = ("nms", "qconv", "requant", "window")     # csrc/<name>.cu
 
 
 def emit(obj) -> None:
@@ -190,13 +212,23 @@ def phase_nms():
     return err, times[512]
 
 
-def init_model(cfg, device, seed=0):
+def float_state(cfg, seed=0, loc_bias=0.0):
+    """Random float weights of ``cfg``; ``loc_bias`` is added to the loc
+    head's output bias (the landmark phases' box size, see the docstring)."""
     import torch
 
-    from densebox_tpu_torch.models import DenseBox, init_params
+    from densebox_tpu_torch.models import init_params
+
+    sd = init_params(cfg, torch.Generator().manual_seed(seed))
+    sd["loc.loc_conv2.bias"] += loc_bias
+    return sd
+
+
+def init_model(cfg, device, seed=0, loc_bias=0.0):
+    from densebox_tpu_torch.models import DenseBox
 
     model = DenseBox(cfg, device=device)
-    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(seed)))
+    model.load_state_dict(float_state(cfg, seed, loc_bias))
     return model.eval()
 
 
@@ -215,13 +247,36 @@ def serving_cells():
              preset.label)]
 
 
+def landmark_cells():
+    """The two landmark serving configurations as (name, model, infer and
+    label configs, int8 chain or None): the MALF face preset at full width
+    in bf16 with its 5-scale pyramid and 5-point anchors, and the JAX
+    bench's landmark pipeline (``bench.py --landmarks 4``: the turbo trunk
+    with 4 landmarks and refine, ``LabelCfg()`` without anchors) in int8 at
+    one scale."""
+    from densebox_tpu_torch import LabelCfg, ModelCfg, kitti_vehicle, malf_face
+
+    malf = malf_face()
+    turbo_lm4 = ModelCfg(stem="s2d4", trunk_depth=3, width_mult=0.25,
+                         num_landmarks=4, use_refine=True,
+                         compute_dtype="bfloat16")
+    return [("malf_bf16",
+             dataclasses.replace(malf.model, compute_dtype="bfloat16"),
+             malf.infer, malf.label, None),
+            ("turbo_int8_lm4", turbo_lm4,
+             dataclasses.replace(kitti_vehicle().infer, scales=(1.0,)),
+             LabelCfg(), "fused")]
+
+
 def with_live_threshold(model, batch, infer_cfg):
     """Random weights: put ``score_thresh`` at the 99th percentile of the
-    scale-1 score map of `batch`, so that candidates reach NMS."""
+    scale-1 map that candidates are decoded from (``refined``, else
+    ``score``) of `batch`, so that candidates reach NMS."""
     import torch
 
     with torch.inference_mode():
-        smap = model(batch)["score"]
+        out = model(batch)
+        smap = out.get("refined", out["score"])
     thresh = float(torch.quantile(smap.flatten()[::7].float(), 0.99))
     return dataclasses.replace(infer_cfg, score_thresh=thresh)
 
@@ -438,51 +493,150 @@ def request_images(n, canvas_hw, seed):
     return out
 
 
-def mismatch(res, boxes, scores):
-    """None if the served result `res` equals the direct detect (boxes,
-    scores) exactly, else what differs."""
-    if (np.array_equal(res["boxes"], boxes)
-            and np.array_equal(res["scores"], scores)):
+def mismatch(res, direct):
+    """None if the served result `res` equals the direct detect `direct`
+    (the same keys: boxes, scores and, with landmarks, lm_points and
+    lm_valid) exactly, else what differs."""
+    if set(res) == set(direct) and all(np.array_equal(res[k], direct[k])
+                                       for k in direct):
         return None
-    out = {"served": len(res["boxes"]), "direct": len(boxes)}
-    if len(boxes) == len(res["boxes"]):
-        out["max_box_diff"] = float(np.abs(res["boxes"] - boxes).max(initial=0))
-        out["max_score_diff"] = float(
-            np.abs(res["scores"] - scores).max(initial=0))
+    out = {"served": len(res["boxes"]), "direct": len(direct["boxes"]),
+           "keys": sorted(set(res) ^ set(direct))}
+    if len(direct["boxes"]) == len(res["boxes"]):
+        out.update({f"max_{k}_diff": float(np.abs(
+            res[k].astype(np.float64) - direct[k]).max(initial=0))
+            for k in direct if k in res})
     return out
 
 
-def init_quant_model(cfg, calib, backend="fused", seed=0):
+def init_quant_model(cfg, calib, backend="fused", seed=0, loc_bias=0.0):
     """The int8 model of the float model ``init_model`` makes, calibrated
     on ``calib`` (on its device)."""
-    import torch
+    from densebox_tpu_torch.models import QuantDenseBox, quantize_densebox
 
-    from densebox_tpu_torch.models import (QuantDenseBox, init_params,
-                                           quantize_densebox)
-
-    float_sd = init_params(cfg, torch.Generator().manual_seed(seed))
-    sd = quantize_densebox(float_sd, cfg, calib)
+    sd = quantize_densebox(float_state(cfg, seed, loc_bias), cfg, calib)
     model = QuantDenseBox(cfg, backend=backend, device=calib.device)
     model.load_state_dict(sd)
     return model.eval()
 
 
-def kernel_modules():
-    from densebox_tpu_torch.ops.kernels import nms, qconv, requant
+# (case, B, S, L, Hm, Wm, D, win, shared origins): the MALF serve shape (the
+# 5-scale pyramid of a 480x640 canvas; scale 1.4142 gives the largest map,
+# 170x228), the bench's lm4 shape (one scale, 120x160, anchor-less) and a
+# ragged one
+WINDOW_CASES = [("malf", 8, 5, 5, 170, 228, 64, 32, False),
+                ("lm4", 8, 1, 4, 120, 160, 64, 32, True),
+                ("ragged", 3, 2, 3, 37, 29, 5, 17, False)]
 
-    return {"nms": nms, "qconv": qconv, "requant": requant}
+
+def window_inputs(rng, b, s, num_lm, hm, wm, d, win, shared, dtype):
+    import torch
+
+    maps = torch.from_numpy(rng.standard_normal((b, s, num_lm, hm, wm))
+                            .astype(np.float32)).cuda().to(dtype)
+    lo = 1 if shared else num_lm
+    idx = [rng.randint(0, s, (b, d)), rng.randint(0, hm - win + 1, (b, d, lo)),
+           rng.randint(0, wm - win + 1, (b, d, lo))]
+    return [maps] + [torch.from_numpy(a.astype(np.int32)).cuda() for a in idx]
+
+
+def phase_window():
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import window as kw
+
+    rng = np.random.RandomState(13)
+    results, times = [], {}
+    for name, *shape, shared in WINDOW_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            maps, sel, y0, x0 = window_inputs(rng, *shape, shared, dtype)
+            win = shape[-1]
+            got = kw.gather_windows(maps, sel, y0, x0, win)
+            want = kw.gather_windows_reference(maps, sel, y0, x0, win)
+            torch.cuda.synchronize()
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            same = bool(torch.equal(got.view(bits), want.view(bits)))
+            dt = str(dtype).split(".")[-1]
+            results.append({"case": name, "shape": shape, "shared": shared,
+                            "dtype": dt, "bitwise_equal": same,
+                            "max_abs_err": float((got.float() - want.float())
+                                                 .abs().max())})
+            if not same:
+                emit({"phase": "window_kernel", "results": results})
+                raise AssertionError(f"window kernel disagrees with its plain "
+                                     f"version ({name}, {dt})")
+            if name != "ragged" and dtype == torch.bfloat16:
+                args = (maps, sel, y0, x0, win)
+                times[name] = (median_ms(lambda: kw.gather_windows(*args), 50),
+                               median_ms(lambda: kw.gather_windows_reference(
+                                   *args), 20))
+    err = max(r["max_abs_err"] for r in results)
+    emit({"phase": "window_kernel", "results": results, "max_abs_err": err,
+          "median_ms": {f"{k}_bf16": {"kernel": t[0], "plain": t[1]}
+                        for k, t in times.items()}})
+    return err, times["malf"]
+
+
+def phase_decode_card_vs_cpu():
+    """Everything after the forward on the card and on the CPU, on the
+    same maps; identical results, the scale selection's flips counted."""
+    import torch
+
+    from densebox_tpu_torch.infer import (detect_from_maps, lm_scale_select,
+                                          pyramid_maps)
+
+    name, cfg, infer, label, _ = landmark_cells()[0]
+    x = torch.from_numpy(np.random.RandomState(14).rand(2, 240, 320, 3)
+                         .astype(np.float32)).cuda()
+    model = init_model(cfg, "cuda", loc_bias=1.0)
+    infer = with_live_threshold(model, x, infer)
+    with torch.inference_mode():
+        levels = pyramid_maps(model, x, infer)
+        cpu_levels = [({k: v.cpu() for k, v in out.items()}, xy)
+                      for out, xy in levels]
+        got = detect_from_maps(levels, (240, 320), infer, label)
+        t0 = time.perf_counter()
+        want = detect_from_maps(cpu_levels, (240, 320), infer, label)
+        cpu_s = time.perf_counter() - t0
+        xy = [xy for _, xy in levels]
+        sel_cpu = lm_scale_select(want["boxes"], None, xy, infer, label)
+        sel_card = lm_scale_select(want["boxes"].cuda(), None, xy, infer,
+                                   label)
+    got = {k: v.cpu() for k, v in got.items()}
+    same = {k: bool(torch.equal(got[k], want[k])) for k in want}
+    valid = want["valid"]
+    emit({"phase": "lm_decode_card_vs_cpu", "model": f"{name} w1.0",
+          "input": list(x.shape), "scales": list(infer.scales),
+          "detections": int(valid.sum()),
+          "lm_valid": int(want["lm_valid"].sum()),
+          "equal": same, "max_abs_err": {
+              k: float((got[k].double() - want[k].double()).abs()
+                       .masked_fill(got[k] == want[k], 0).max())
+              for k in want},
+          "std_sel_differing": int((sel_cpu != sel_card.cpu())[valid].sum()),
+          "std_sel_compared": int(valid.sum()), "cpu_seconds": cpu_s})
+    if not valid.any() or not want["lm_valid"].any():
+        raise AssertionError("phase 14 decoded no detection or no landmark")
+    if not all(same.values()):
+        raise AssertionError(f"landmark detect on the card differs from the "
+                             f"CPU on the same maps: {same}")
+
+
+def kernel_modules():
+    from densebox_tpu_torch.ops.kernels import nms, qconv, requant, window
+
+    return {"nms": nms, "qconv": qconv, "requant": requant, "window": window}
 
 
 def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
-                canvas_hw=(480, 640), n_req=24, n_threads=8):
+                canvas_hw=(480, 640), n_req=24, n_threads=8, loc_bias=0.0):
     """Serve ``n_req`` requests from ``n_threads`` clients with the float
     model, or with ``quant`` ('fused' or 'hybrid') its int8 model calibrated
     on the first canvas batch. Returns the kernels' launch counts."""
     import torch
 
-    from densebox_tpu_torch.infer import candidates
+    from densebox_tpu_torch.infer import detect_batch
     from densebox_tpu_torch.models.quant import conv_names
-    from densebox_tpu_torch.ops.nms import nms
     from densebox_tpu_torch.serve import DetectServer
 
     imgs = request_images(n_req, canvas_hw, seed=3)
@@ -491,13 +645,21 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
         h, w = imgs[i].shape[:2]
         canvas[i, :h, :w] = imgs[i]
     canvas_t = torch.from_numpy(canvas).cuda()
-    model = (init_quant_model(model_cfg, canvas_t, quant) if quant
-             else init_model(model_cfg, "cuda"))
+    model = (init_quant_model(model_cfg, canvas_t, quant, loc_bias=loc_bias)
+             if quant else init_model(model_cfg, "cuda", loc_bias=loc_bias))
     infer_cfg = with_live_threshold(model, canvas_t, infer_cfg)
     thresh = infer_cfg.score_thresh
 
     server = DetectServer(model, infer_cfg, label_cfg, canvas_hw=canvas_hw,
                           max_batch=8, batch_window_ms=15.0)
+    batches = []          # each device call's batch, as the card got it
+    serve_detect = server._detect
+
+    def recording(batch):
+        batches.append(batch.clone())
+        return serve_detect(batch)
+
+    server._detect = recording
     results, lat = [None] * n_req, [None] * n_req
     kernels = kernel_modules()
     try:
@@ -524,41 +686,68 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
         server.close()
     if any(t.is_alive() for t in threads) or any(r is None for r in results):
         raise AssertionError(f"{name}: not every request was answered")
-    # The first 8 requests were served letterboxed as in `canvas` (no
-    # downscale, so no change of coordinates), in some slot of some device
-    # call. An image's maps on the card do not depend on its slot or on the
-    # other images in the batch, so each served result must equal a direct
-    # detect of `canvas` bit for bit.
-    with torch.inference_mode():
-        cand = candidates(model, canvas_t, infer_cfg, label_cfg)
-        boxes, scores, valid = (t.cpu().numpy() for t in nms(
-            *cand, iou_thresh=infer_cfg.nms_iou, max_out=infer_cfg.max_dets))
-    diffs = {i: d for i in range(8)
-             if (d := mismatch(results[i], boxes[i][valid[i]],
-                               scores[i][valid[i]])) is not None}
+    # Each request was served letterboxed (no downscale: no image is larger
+    # than the canvas, so no change of coordinates) from one slot of one
+    # device call. cuDNN's kernels for some convolution shapes make an
+    # image's maps depend, in the last bit, on its slot in the batch (seen
+    # on conv4_2 at odd map widths), so each served result is held to a
+    # direct detect_batch of the very batch its call ran, bit for bit; its
+    # slot is found by content. How many of the first 8 requests differ
+    # from a detect of `canvas` (the same images in other slots) is printed.
+    def detect(batch):
+        with torch.inference_mode():
+            out = {k: v.cpu().numpy() for k, v in detect_batch(
+                model, batch, infer_cfg, label_cfg).items()}
+        return [{k: v[s][out["valid"][s]] for k, v in out.items()
+                 if k != "valid"} for s in range(len(batch))]
+
+    direct, slot_of = [], {}
+    for batch in batches:
+        for s, img in enumerate(batch.cpu().numpy()):
+            slot_of.setdefault(img.tobytes(), (len(direct), s))
+        direct.append(detect(batch))
+    diffs = {}
+    for i, img in enumerate(imgs):
+        lb = np.zeros(tuple(canvas_hw) + (3,), np.float32)
+        lb[:img.shape[0], :img.shape[1]] = img
+        c, s = slot_of.get(lb.tobytes(), (None, None))
+        d = ("in no device call's batch" if c is None
+             else mismatch(results[i], direct[c][s]))
+        if d is not None:
+            diffs[i] = d
+    canvas_direct = detect(canvas_t)
+    slot_dependent = [i for i in range(8)
+                      if mismatch(results[i], canvas_direct[i]) is not None]
     n_out = [len(r["boxes"]) for r in results]
-    finite = all(np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
-                 for r in results)
+    finite = all(np.isfinite(r[k]).all() for r in results
+                 for k in ("boxes", "scores", "lm_points") if k in r)
     calls = stats["device_calls"]
     # one int8 conv per conv of the model, and with the hybrid chain one
-    # requant after each; the float model launches neither
+    # requant after each (the float model launches neither); one window
+    # gather per call for a landmark model
     n_conv = len(conv_names(model_cfg)) if quant else 0
     want = {"nms": calls, "qconv": n_conv * calls,
-            "requant": n_conv * calls if quant == "hybrid" else 0}
+            "requant": n_conv * calls if quant == "hybrid" else 0,
+            "window": calls if model_cfg.num_landmarks else 0}
+    lm = ({"lm_valid_per_request": [int(r["lm_valid"].sum()) for r in results]}
+          if model_cfg.num_landmarks else {})
     emit({"phase": name, "requests": stats["requests"],
           "device_calls": calls, "launches": launches,
           "launches_expected": want,
           "score_thresh": thresh,
-          "nms_in_per_image": cand[2].sum(1).tolist(),
-          "nms_out_per_request": n_out,
+          "nms_out_per_request": n_out, **lm,
           "req_per_s": n_req / wall, "p50_ms": float(np.median(lat)) * 1e3,
           "latency_samples": n_req, "finite": finite,
-          "served_equals_direct": not diffs, "mismatches": diffs})
+          "served_equals_direct": not diffs, "mismatches": diffs,
+          "differ_from_canvas_slot": slot_dependent})
     if not finite or sum(n_out) == 0:
         raise AssertionError(f"{name}: detections not finite or none at all")
+    if lm and not sum(lm["lm_valid_per_request"]):
+        raise AssertionError(f"{name}: every landmark took the centre "
+                             f"fallback")
     if diffs:
         raise AssertionError(f"{name}: served detections differ from a "
-                             f"direct detect of the same canvases: {diffs}")
+                             f"direct detect of the same batches: {diffs}")
     if not calls < stats["requests"] == n_req:
         raise AssertionError(f"{name}: requests were not coalesced: {stats}")
     if calls < 1 or launches != want:
@@ -602,6 +791,11 @@ def main() -> int:
     for quant in ("fused", "hybrid"):
         launches[quant] = phase_serve(f"serve_turbo_int8_{quant}", turbo,
                                       turbo_infer, label, quant=quant)
+    w_err, (w_ms, w_plain_ms) = phase_window()
+    phase_decode_card_vs_cpu()
+    for name, *cfgs, quant in landmark_cells():
+        launches[name] = phase_serve(f"serve_{name}", *cfgs, quant=quant,
+                                     loc_bias=1.0)
 
     print(card, flush=True)
     emit({"kernels": [
@@ -619,7 +813,12 @@ def main() -> int:
          "source": "densebox_tpu_torch/csrc/requant.cu",
          "replaces": "densebox_tpu/ops/pallas/requant.py:35",
          "launches": launches["hybrid"]["requant"], "max_abs_err": r_err,
-         "ms": r_ms, "plain_ms": r_plain_ms}]})
+         "ms": r_ms, "plain_ms": r_plain_ms},
+        {"name": "gather_windows", "route": "cuda",
+         "source": "densebox_tpu_torch/csrc/window.cu",
+         "replaces": "densebox_tpu/ops/pallas/window.py:53",
+         "launches": launches["malf_bf16"]["window"], "max_abs_err": w_err,
+         "ms": w_ms, "plain_ms": w_plain_ms}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,11 +8,13 @@ any ``densebox_tpu`` module (``densebox_tpu.serve.make_http_server`` serves
 the port's ``DetectServer`` as it is).
 
 Slices covered so far: the float (f32/bf16) and the int8 post-training
-quantised det-only detect-and-serve paths — model forwards (models/, the
-int8 one on hand-written CUDA int8-conv and requant kernels), fixed-K decode
-and greedy NMS (ops/, with a hand-written CUDA NMS kernel; the kernel
-sources are under csrc/), the image pyramid (infer/) and the
-request-coalescing server (serve.py). See ROADMAP.md for the slices to come.
+quantised detect-and-serve paths, with and without landmarks and the refine
+branch — model forwards (models/, the int8 one on hand-written CUDA
+int8-conv and requant kernels), fixed-K decode, greedy NMS and the landmark
+window gather (ops/, with hand-written CUDA NMS and window kernels; the
+kernel sources are under csrc/), the image pyramid and landmark decode
+(infer/) and the request-coalescing server (serve.py). See ROADMAP.md for
+the slices to come.
 
 Public functions take and return the JAX package's layouts: NHWC images and
 maps, (B, K, 4) xyxy boxes.

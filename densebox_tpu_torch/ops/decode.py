@@ -16,6 +16,21 @@ from typing import Tuple
 import torch
 
 
+def div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x / s`` for a Python number ``s``, rounded once on every device as
+    on the CPU: CUDA divides a tensor by a host scalar as a product with the
+    scalar's reciprocal, which can differ in the last bit."""
+    if x.device.type != "cpu":
+        s = torch.full((), s, dtype=x.dtype, device=x.device)
+    return x / s
+
+
+def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
+    """``s / x`` for a Python number ``s``, rounded once (``s / x`` on a
+    tensor is ``x.reciprocal() * s``, two roundings)."""
+    return torch.full((), s, dtype=x.dtype, device=x.device) / x
+
+
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, lower index first among ties — the order
     ``lax.top_k`` gives. A stable descending sort sliced to k: the tie
@@ -53,10 +68,10 @@ def decode_topk(
 
     d = torch.gather(loc_map.reshape(b, h * w, 4), 1,
                      idx[..., None].expand(b, k, 4)) * loc_norm
-    x1 = (ix - d[..., 0]) * stride / scale_x
-    y1 = (iy - d[..., 1]) * stride / scale_y
-    x2 = (ix + d[..., 2]) * stride / scale_x
-    y2 = (iy + d[..., 3]) * stride / scale_y
+    x1 = div((ix - d[..., 0]) * stride, scale_x)
+    y1 = div((iy - d[..., 1]) * stride, scale_y)
+    x2 = div((ix + d[..., 2]) * stride, scale_x)
+    y2 = div((iy + d[..., 3]) * stride, scale_y)
     boxes = torch.stack([x1, y1, x2, y2], dim=-1)
     valid = scores > score_thresh
     if k < topk:  # pad up to the fixed capacity

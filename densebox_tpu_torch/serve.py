@@ -7,7 +7,8 @@ Same contract as the JAX server:
     shape; short batches pad with zero images whose results are dropped;
   * the first queued request opens a ``batch_window_ms`` window, and every
     request arriving inside it rides the same device call;
-  * results come back in each request's own image coordinates;
+  * results come back in each request's own image coordinates (boxes,
+    scores and, for a landmark model, lm_points and lm_valid);
   * ``stats`` counts requests and device calls.
 
 The batch is assembled in one pinned host buffer and copied to the model's
@@ -157,6 +158,9 @@ class DetectServer:
                     v = out["valid"][i]
                     slot["boxes"] = out["boxes"][i][v] / f
                     slot["scores"] = out["scores"][i][v]
+                    if "lm_points" in out:
+                        slot["lm_points"] = out["lm_points"][i][v] / f
+                        slot["lm_valid"] = out["lm_valid"][i][v]
                     done.set()
             except Exception as e:  # noqa: BLE001 - relayed per request
                 for _, _, done, slot in batch:

@@ -5,9 +5,10 @@
 
 Prints one JSON line per probe, after the card's name and power limit:
   cell        for each serving cell of chip_smoke.py (paper and turbo, B=8,
-              480x640 canvas, bf16, random weights) and for turbo_int8 and
+              480x640 canvas, bf16, random weights), for turbo_int8 and
               turbo_int8_hybrid (the turbo model in int8, calibrated on the
-              profiled batch; fused and hybrid chain): a device call
+              profiled batch; fused and hybrid chain) and for its landmark
+              cells malf_bf16 and turbo_int8_lm4: a device call
               (pinned host batch -> detect -> results on the host) on the
               host clock around a synchronised call (median, q1, q3 of
               20), then a
@@ -32,7 +33,8 @@ import time
 import numpy as np
 
 from chip_smoke import (card_line, emit, init_model, init_quant_model,
-                        median_ms, serving_cells, with_live_threshold)
+                        landmark_cells, median_ms, serving_cells,
+                        with_live_threshold)
 
 CANVAS = (8, 480, 640, 3)
 
@@ -44,6 +46,7 @@ def kernel_kind(name: str) -> str:
             ("nms_kernel", ("iou_mask", "sweep_kernel")),
             ("int8_conv_kernel", ("qconv_kernel",)),
             ("requant_kernel", ("requant_kernel",)),
+            ("window_kernel", ("window_kernel",)),
             ("sort", ("sort", "radix")),
             ("max_pool", ("max_pool",)),
             ("relu", ("clamp",)),
@@ -73,14 +76,14 @@ def host_ms(fn, reps: int):
 
 
 def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls,
-               quant=None):
+               quant=None, loc_bias=0.0):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from densebox_tpu_torch.infer import make_detect_fn
 
-    model = (init_quant_model(model_cfg, host.cuda(), quant) if quant
-             else init_model(model_cfg, "cuda"))
+    model = (init_quant_model(model_cfg, host.cuda(), quant, loc_bias=loc_bias)
+             if quant else init_model(model_cfg, "cuda", loc_bias=loc_bias))
     infer_cfg = with_live_threshold(model, host.cuda(), infer_cfg)
     detect = make_detect_fn(model, infer_cfg, label_cfg)
 
@@ -200,6 +203,9 @@ def main(argv=None) -> int:
                         ("turbo_int8_hybrid", "hybrid")):
         emit(probe_cell(name, turbo, turbo_infer, label, host, args.calls,
                         quant=quant))
+    for name, *cfgs, quant in landmark_cells():
+        emit(probe_cell(name, *cfgs, host, args.calls, quant=quant,
+                        loc_bias=1.0))
     _, paper, paper_infer, _ = cells[0]
     emit(probe_fused_conv(paper))
     emit(probe_resize(paper_infer, host))

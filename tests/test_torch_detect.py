@@ -23,8 +23,8 @@ import torch
 from densebox_tpu.config import InferCfg, LabelCfg, ModelCfg
 from densebox_tpu.infer import detector as jax_detector
 from densebox_tpu.models import DenseBox as JaxDenseBox
-from densebox_tpu_torch.infer import (detect_batch, make_detect_fn,
-                                      pyramid_shapes, resize_linear)
+from densebox_tpu_torch.infer import (make_detect_fn, pyramid_shapes,
+                                      resize_linear)
 from densebox_tpu_torch.models import DenseBox, from_flax
 from densebox_tpu_torch.serve import DetectServer
 
@@ -145,13 +145,6 @@ def test_server_coalesces_concurrent_requests(models):
     assert server.stats["device_calls"] < 6
     with pytest.raises(RuntimeError, match="server closed"):
         server.submit(imgs[0])
-
-
-def test_landmark_model_is_refused():
-    cfg = ModelCfg(width_mult=0.125, num_landmarks=4, use_refine=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        detect_batch(DenseBox(cfg).eval(), torch.zeros(1, 32, 32, 3),
-                     _infer_cfg((1.0,)), LABEL)
 
 
 _NO_JAX_SCRIPT = """

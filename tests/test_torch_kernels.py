@@ -1,5 +1,5 @@
-"""The CUDA kernels (greedy NMS, int8 conv, requant epilogue) against their
-plain PyTorch versions.
+"""The CUDA kernels (greedy NMS, int8 conv, requant epilogue, landmark window
+gather) against their plain PyTorch versions.
 
 These tests need a CUDA card (marker ``gpu``) and skip without one. This
 file imports no jax, so on a machine with a card and no JAX they run as
@@ -17,6 +17,7 @@ import torch
 from densebox_tpu_torch.ops.kernels import nms as knms
 from densebox_tpu_torch.ops.kernels import qconv as kqconv
 from densebox_tpu_torch.ops.kernels import requant as krequant
+from densebox_tpu_torch.ops.kernels import window as kwindow
 from densebox_tpu_torch.ops.nms import nms
 
 
@@ -247,3 +248,69 @@ def test_int8_wrapper_checks(cuda):
         kqconv.qconv_int8(x.transpose(1, 2), w, 1.0, 0.0)
     with pytest.raises(ValueError, match="int32"):
         krequant.requant_epilogue(torch.zeros(2, 4, device=cuda), 1.0, 0.0)
+
+
+# (B, S, L, Hm, Wm, D, win): the MALF serve shape (5-scale pyramid of a
+# 480x640 canvas, scale 1.4142 the largest map), the bench's lm4 shape (one
+# scale) and a ragged one (odd map, odd window)
+WINDOW_SHAPES = [(8, 5, 5, 170, 228, 64, 32), (8, 1, 4, 120, 160, 64, 32),
+                 (3, 2, 3, 37, 29, 5, 17)]
+
+
+def window_case(seed, b, s, num_lm, hm, wm, d, win, shared):
+    """Random maps (B, S, L, Hm, Wm) float32, sel (B, D) and in-range
+    origins (B, D, L), or (B, D, 1) when ``shared``, all int32 numpy."""
+    rng = np.random.RandomState(seed)
+    maps = rng.standard_normal((b, s, num_lm, hm, wm)).astype(np.float32)
+    lo = 1 if shared else num_lm
+    sel = rng.randint(0, s, (b, d)).astype(np.int32)
+    y0 = rng.randint(0, hm - win + 1, (b, d, lo)).astype(np.int32)
+    x0 = rng.randint(0, wm - win + 1, (b, d, lo)).astype(np.int32)
+    return maps, sel, y0, x0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WINDOW_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lm", "shared"])
+def test_window_kernel_matches_plain_version(cuda, shape, dtype, shared):
+    maps, sel, y0, x0 = window_case(sum(shape), *shape, shared)
+    maps = torch.from_numpy(maps).to(cuda, dtype)
+    sel, y0, x0 = (torch.from_numpy(a).to(cuda) for a in (sel, y0, x0))
+    win = shape[-1]
+    before = kwindow.launches
+    got = kwindow.gather_windows(maps, sel, y0, x0, win)
+    torch.cuda.synchronize()
+    assert kwindow.launches == before + 1
+    want = kwindow.gather_windows_reference(maps, sel, y0, x0, win)
+    assert got.dtype == dtype and got.shape == want.shape
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.gpu
+def test_window_wrapper_checks(cuda):
+    maps = torch.zeros(2, 1, 3, 20, 24, device=cuda)
+    sel = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    org = torch.zeros(2, 4, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kwindow.gather_windows(maps.half(), sel, org, org, 8)
+    with pytest.raises(TypeError):
+        kwindow.gather_windows(maps, sel.long(), org, org, 8)
+    with pytest.raises(ValueError, match="origins"):
+        kwindow.gather_windows(maps, sel, org[..., :2], org[..., :2], 8)
+    with pytest.raises(ValueError, match="win"):
+        kwindow.gather_windows(maps, sel, org, org, 21)
+    with pytest.raises(ValueError, match="devices"):
+        kwindow.gather_windows(maps, sel.cpu(), org, org, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kwindow.gather_windows(maps.transpose(3, 4), sel, org, org, 8)
+
+
+def test_window_wrapper_refuses_other_devices():
+    maps = torch.zeros(1, 1, 2, 8, 8, device="meta")
+    sel = torch.zeros(1, 3, dtype=torch.int32, device="meta")
+    org = torch.zeros(1, 3, 1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        kwindow.gather_windows(maps, sel, org, org, 4)

@@ -81,6 +81,9 @@ def test_resize_products_equal_resize_linear():
      "signed char const*, float const*)", "int8_conv_kernel"),
     ("void (anonymous namespace)::requant_kernel<int>(int const*, float "
      "const*)", "requant_kernel"),
+    ("void (anonymous namespace)::window_kernel<unsigned short>(unsigned "
+     "short const*, int const*, int const*, int const*, unsigned short*, "
+     "int, int, int, int, int, int, int)", "window_kernel"),
     ("void at::native::radixSortKVInPlace<2, -1, 32, 32, float, long>",
      "sort"),
     ("void at::native::(anonymous namespace)::max_pool_forward_nhwc"
