@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detect-and-serve paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's detect-and-serve and train paths once on an
+NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -7,8 +8,9 @@ Phases (each prints one JSON line; any failure raises, so the exit code is
 not 0):
   1. no card, no run: without CUDA the script exits 1 with no result;
   2. the card's name and power limit (nvidia-smi);
-  3. build the CUDA kernels (NMS, int8 conv, requant, window gather) from
-     densebox_tpu_torch/csrc, one nvcc per source, all at once;
+  3. build the CUDA kernels (NMS, int8 conv, requant, window gather, GT
+     rasterizers, OHEM) from densebox_tpu_torch/csrc, one nvcc per source,
+     all at once;
   4. NMS kernel against its plain PyTorch version on the card (B=8,
      K in {256, 512, 1024}, random boxes and IoU-on-threshold pairs: keep
      masks, indices, boxes and scores identical), with median times;
@@ -49,11 +51,39 @@ not 0):
      launch per device call;
  16. serve the bench's landmark pipeline in int8: the turbo trunk with 4
      landmarks and refine, no anchors (shared origins), calibrated on the
-     card, one scale: as phase 15, plus one int8 conv launch per conv.
-Each serve run resets every kernel's launch counter just before its
-requests and reads them just after. The line before the last lists the
-kernels, after the card line again; the last line is
-{"ok": true, "device": {...}}.
+     card, one scale: as phase 15, plus one int8 conv launch per conv;
+ 17. both GT rasterizer kernels against their plain versions on the card,
+     bitwise: packed rows at the training shape (B=32, K=16, M=60, L=5; out
+     of band and invalid slots, an empty patch, coincident and equidistant
+     centres, rim-exact discs) and a ragged one (B=3, K=1, M=8, L=1), then
+     px boxes through ``rasterize`` on the card against the CPU; median
+     times at the training shape;
+ 18. OHEM kernel against its plain version on the card, bitwise, at B=32,
+     P=3600: random errors, all negatives tied, no positives, fewer
+     candidates than the quota, and the errors of a real forward; median
+     times;
+ 19. one train step, card against CPU: kitti_vehicle() and malf_face() at
+     full width in f32, B=4, 240 px, the same state, batch and given draws:
+     GT maps identical, OHEM masks identical on the same errors, loss and
+     metrics within 1e-4 relative, every gradient within 5e-3 of its largest
+     entry (cuDNN sums in another order than the CPU; a float64 step on the
+     CPU shows float32's own rounding noise beside it);
+ 20. train kitti_vehicle() at full width, B=32, 240 px patches: 2 + 30
+     steps of make_train_step on synthetic batches drawn on the card; every
+     loss and update norm finite, the mean loss of the last 5 steps below
+     that of the first 5, parameters moved, per step 1 box-rasterizer
+     launch, 0 landmark launches and 1 OHEM launch; ms/step and steps/s on
+     the host clock (synchronised) on a line of their own;
+ 21. train malf_face() at full width (5 landmarks, refine) through
+     make_canvas_train_step: 480 px canvases, 240 px patches sampled on the
+     card with flips, B=32, 2 + 12 steps: as phase 20, with 1 + 1 rasterizer
+     launches and 2 OHEM launches per step.
+Each serve and train run resets every kernel's launch counter just before
+its requests or steps and reads them just after. The line before the last
+lists the seven kernels (with the least time the card could take for the
+same bytes or operations, from the published peaks of an H100 SXM, and one
+PyTorch call's time where one computes the same function), after the card
+line again; the last line is {"ok": true, "device": {...}}.
 
 Weights are random (torch.Generator seeds), so detections are not
 meaningful objects: the score threshold of the serve phases is set from
@@ -78,7 +108,7 @@ from unittest import mock
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("nms", "qconv", "requant", "window")     # csrc/<name>.cu
+KERNELS = ("nms", "qconv", "requant", "window", "labels", "ohem")  # csrc/<name>.cu
 
 
 def emit(obj) -> None:
@@ -209,7 +239,10 @@ def phase_nms():
     emit({"phase": "nms_kernel", "results": results, "max_abs_err": err,
           "median_ms": {f"B8_K{k}": {"kernel": t[0], "plain": t[1]}
                         for k, t in times.items()}})
-    return err, times[512]
+    # B=8, K=512: boxes and flags in, keep mask out; 16 float operations
+    # for each of the K(K-1)/2 pairs' IoU test
+    return err, times[512], bound(8 * 512 * (16 + 1 + 1),
+                                  8 * 512 * 511 / 2 * 16)
 
 
 def float_state(cfg, seed=0, loc_bias=0.0):
@@ -232,6 +265,10 @@ def init_model(cfg, device, seed=0, loc_bias=0.0):
     return model.eval()
 
 
+# a bf16 server holds its weights in bf16 too (no cast per forward)
+BF16 = dict(compute_dtype="bfloat16", param_dtype="bfloat16")
+
+
 def serving_cells():
     """The two serving configurations as (name, model, infer and label
     configs): the paper preset at full width with its 4-scale pyramid, and
@@ -239,9 +276,8 @@ def serving_cells():
     from densebox_tpu_torch import ModelCfg, kitti_vehicle
 
     preset = kitti_vehicle()
-    paper = dataclasses.replace(preset.model, compute_dtype="bfloat16")
-    turbo = ModelCfg(stem="s2d4", trunk_depth=3, width_mult=0.25,
-                     compute_dtype="bfloat16")
+    paper = dataclasses.replace(preset.model, **BF16)
+    turbo = ModelCfg(stem="s2d4", trunk_depth=3, width_mult=0.25, **BF16)
     return [("paper", paper, preset.infer, preset.label),
             ("turbo", turbo, dataclasses.replace(preset.infer, scales=(1.0,)),
              preset.label)]
@@ -258,10 +294,9 @@ def landmark_cells():
 
     malf = malf_face()
     turbo_lm4 = ModelCfg(stem="s2d4", trunk_depth=3, width_mult=0.25,
-                         num_landmarks=4, use_refine=True,
-                         compute_dtype="bfloat16")
+                         num_landmarks=4, use_refine=True, **BF16)
     return [("malf_bf16",
-             dataclasses.replace(malf.model, compute_dtype="bfloat16"),
+             dataclasses.replace(malf.model, **BF16),
              malf.infer, malf.label, None),
             ("turbo_int8_lm4", turbo_lm4,
              dataclasses.replace(kitti_vehicle().infer, scales=(1.0,)),
@@ -299,7 +334,7 @@ def phase_forward():
           "tf32": False, "max_abs_err": errs, "max_abs_value": scale, "tol": 1e-3})
     if not all(e <= 1e-3 for e in errs.values()):
         raise AssertionError(f"f32 forward on the card disagrees with the CPU: {errs}")
-    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    bcfg = dataclasses.replace(cfg, **BF16)
     x = torch.from_numpy(np.random.RandomState(2).rand(2, 480, 640, 3)
                          .astype(np.float32)).cuda()
     with torch.inference_mode():
@@ -373,10 +408,17 @@ def phase_qconv():
             args = (x, wq, scale, bias, osc)
             timed = (median_ms(lambda: kq.qconv_int8(*args), 50),
                      median_ms(lambda: kq.qconv_reference(*args), 10))
+            b, h, w, cin, cout, k = shape
+            # int8 in, weights, three float vectors, int8 out; two int8
+            # operations per multiply-add
+            bnd = bound(b * h * w * (cin + cout) + wq.numel() + 12 * cout,
+                        2 * b * h * w * cin * cout * k * k, "int8")
+            library = conv_library_ms(args)
     emit({"phase": "qconv_kernel", "results": results, "max_abs_err": err,
           "median_ms": {"turbo_conv3_2_int8_B8": {"kernel": timed[0],
-                                                  "plain": timed[1]}}})
-    return err, timed
+                                                  "plain": timed[1],
+                                                  "library_bf16_conv": library}}})
+    return err, timed, bnd, library
 
 
 def phase_requant():
@@ -410,7 +452,9 @@ def phase_requant():
     if not all(r["equal"] for r in results.values()):
         raise AssertionError(f"requant kernel disagrees with its plain "
                              f"version: {results}")
-    return err, times["int8"]
+    # int32 in, int8 out, three float vectors; five float operations each
+    return err, times["int8"], bound(acc.numel() * 5 + 12 * 64,
+                                     acc.numel() * 5)
 
 
 def recorded_forward(model, x):
@@ -445,7 +489,7 @@ def phase_forward_int8():
     x = torch.from_numpy(np.random.RandomState(7).rand(2, 240, 320, 3)
                          .astype(np.float32))
     gpu = init_quant_model(cfg, x.cuda())               # calibrated on the card
-    cpu = QuantDenseBox(cfg).eval()
+    cpu = QuantDenseBox(cfg, device="cpu").eval()
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     hybrid = QuantDenseBox(cfg, backend="hybrid", device="cuda").eval()
     hybrid.load_state_dict(gpu.state_dict())
@@ -574,7 +618,10 @@ def phase_window():
     emit({"phase": "window_kernel", "results": results, "max_abs_err": err,
           "median_ms": {f"{k}_bf16": {"kernel": t[0], "plain": t[1]}
                         for k, t in times.items()}})
-    return err, times["malf"]
+    # the windows read and written (bf16) and the int32 indices
+    _, b, _, num_lm, _, _, d, win, _ = WINDOW_CASES[0]
+    return err, times["malf"], bound(
+        2 * b * d * num_lm * win * win * 2 + b * d * (1 + 2 * num_lm) * 4, 0)
 
 
 def phase_decode_card_vs_cpu():
@@ -623,9 +670,28 @@ def phase_decode_card_vs_cpu():
 
 
 def kernel_modules():
-    from densebox_tpu_torch.ops.kernels import nms, qconv, requant, window
+    from densebox_tpu_torch.ops.kernels import (labels, nms, ohem, qconv,
+                                                requant, window)
 
-    return {"nms": nms, "qconv": qconv, "requant": requant, "window": window}
+    return {"nms": nms, "qconv": qconv, "requant": requant, "window": window,
+            "labels": labels, "ohem": ohem}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.reset_launches()
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count since the last reset, by kernel name (the
+    labels module counts its two kernels apart)."""
+    out = {}
+    for name, mod in kernel_modules().items():
+        if isinstance(mod.launches, dict):
+            out.update(mod.launches)
+        else:
+            out[name] = mod.launches
+    return out
 
 
 def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
@@ -661,10 +727,8 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
 
     server._detect = recording
     results, lat = [None] * n_req, [None] * n_req
-    kernels = kernel_modules()
     try:
-        for mod in kernels.values():
-            mod.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
 
         def client(tid):
@@ -680,7 +744,7 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t0
-        launches = {k: mod.launches for k, mod in kernels.items()}
+        launches = read_launches()
         stats = dict(server.stats)
     finally:
         server.close()
@@ -728,7 +792,8 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
     n_conv = len(conv_names(model_cfg)) if quant else 0
     want = {"nms": calls, "qconv": n_conv * calls,
             "requant": n_conv * calls if quant == "hybrid" else 0,
-            "window": calls if model_cfg.num_landmarks else 0}
+            "window": calls if model_cfg.num_landmarks else 0,
+            "rasterize_boxes": 0, "rasterize_landmarks": 0, "ohem": 0}
     lm = ({"lm_valid_per_request": [int(r["lm_valid"].sum()) for r in results]}
           if model_cfg.num_landmarks else {})
     emit({"phase": name, "requests": stats["requests"],
@@ -756,6 +821,392 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
     return launches
 
 
+# --- the train step (phases 17-21) -----------------------------------------
+
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): the
+# yardsticks of `bound_ms`
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, kind: str = "f32"):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over the peak rate
+    of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def label_rows(rng, b, k, m, num_lm):
+    """Packed rasterizer rows: box rows (B, K, 8) = [cx, cy, rc2, rg2, x1,
+    y1, x2, y2] and landmark rows (B, K*L, 3) = [lx, ly, r2], float32. Half
+    the centres and radii are integers, so that pixels lie exactly on a
+    disc's rim (d2 == rc2); a quarter of the slots are never positive (out
+    of band), an eighth never gray either (invalid); patch 0 is empty; patch
+    1 holds two boxes with one centre and two whose centres are equidistant
+    from a column of pixels."""
+    c = rng.uniform(0, m, (b, k, 2))
+    r = rng.uniform(0.5, m / 4, (b, k))
+    integer = rng.rand(b, k) < 0.5
+    c = np.where(integer[..., None], np.round(c), c)
+    r = np.where(integer, np.maximum(np.round(r), 1), r)
+    kind = rng.rand(b, k)
+    rc2 = np.where(kind < 0.25, -1.0, r * r)
+    rg2 = np.where(kind < 0.125, -1.0, (r + 2) ** 2)
+    half = rng.uniform(1, m / 3, (b, k, 2))
+    rows = np.stack([c[..., 0], c[..., 1], rc2, rg2,
+                     c[..., 0] - half[..., 0], c[..., 1] - half[..., 1],
+                     c[..., 0] + half[..., 0], c[..., 1] + half[..., 1]], -1)
+    rows[0, :, 2:4] = -1.0
+    if b > 1 and k >= 4:
+        rows[1, 0, :4] = [m // 2, m // 2, 9.0, 25.0]
+        rows[1, 1, :4] = rows[1, 0, :4]
+        rows[1, 2, :4] = [2.0, 3.0, 16.0, 36.0]
+        rows[1, 3, :4] = [6.0, 3.0, 16.0, 36.0]
+    lm = np.concatenate([rng.uniform(-2, m + 2, (b, k * num_lm, 2)),
+                         np.where(rng.rand(b, k * num_lm, 1) < 0.3, -1.0, 1.0)],
+                        -1)
+    lm[:, ::2, :2] = np.round(lm[:, ::2, :2])      # rim-exact: d2 == 1
+    return rows.astype(np.float32), lm.astype(np.float32)
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
+def phase_rasterizers():
+    """Phase 17: both rasterizer kernels against their plain versions on the
+    card, bitwise, and the whole ``rasterize`` on the card against the CPU."""
+    import torch
+
+    from densebox_tpu_torch import LabelCfg
+    from densebox_tpu_torch.ops.kernels import labels as kl
+    from densebox_tpu_torch.ops.labels import rasterize
+
+    rng = np.random.RandomState(17)
+    inv = float(np.float32(1.0 / LabelCfg().loc_norm))
+    results, full = [], None
+    for b, k, m, num_lm in ((32, 16, 60, 5), (3, 1, 8, 1)):
+        rows, lm_rows = (torch.from_numpy(a).cuda()
+                         for a in label_rows(rng, b, k, m, num_lm))
+        got = kl.rasterize_boxes(rows, m, inv) + (
+            kl.rasterize_landmarks(lm_rows, m, num_lm),)
+        want = kl.rasterize_boxes_reference(rows, m, inv) + (
+            kl.rasterize_landmarks_reference(lm_rows, m, num_lm),)
+        torch.cuda.synchronize()
+        same = {n: bits_equal(g, w) for n, g, w in
+                zip(("score", "loc", "ignore", "lm"), got, want)}
+        results.append({"case": "rows", "shape": [b, k, m, num_lm],
+                        "bitwise_equal": same,
+                        "positives": int(got[0].sum()),
+                        "gray": int(got[2].sum()), "lm_pixels": int(got[3].sum()),
+                        "max_abs_err": max(float((g - w).abs().max())
+                                           for g, w in zip(got, want))})
+        if not all(same.values()) or (b == 32 and not got[0].sum() > 0):
+            emit({"phase": "rasterizer_kernels", "results": results})
+            raise AssertionError(f"a rasterizer kernel disagrees with its "
+                                 f"plain version: {results[-1]}")
+        if b == 32:
+            full = (rows, lm_rows, m, num_lm)
+    # px boxes through pack + kernels on the card against the CPU
+    cfg = LabelCfg()
+    bx = rng.uniform(20, 220, (32, 16, 2))
+    h = rng.uniform(25, 80, (32, 16))
+    w = h * rng.uniform(0.7, 1.3, (32, 16))
+    boxes = torch.from_numpy(np.concatenate(
+        [bx - np.stack([w, h], -1) / 2, bx + np.stack([w, h], -1) / 2],
+        -1).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(32, 16) > 0.5)
+    lms = torch.from_numpy((bx[:, :, None] + rng.uniform(-20, 20, (32, 16, 5, 2))
+                            ).astype(np.float32))
+    lmv = torch.from_numpy(rng.rand(32, 16, 5) > 0.2)
+    on_card = rasterize(boxes.cuda(), valid.cuda(), cfg, lms.cuda(), lmv.cuda())
+    on_cpu = rasterize(boxes, valid, cfg, lms, lmv)
+    same = {n: bits_equal(on_card[n].cpu(), on_cpu[n]) for n in on_cpu}
+    results.append({"case": "px_boxes_card_vs_cpu", "shape": [32, 16, 60, 5],
+                    "bitwise_equal": same,
+                    "positives": int(on_cpu["score"].sum())})
+    rows, lm_rows, m, num_lm = full
+    times = {
+        "rasterize_boxes": (
+            median_ms(lambda: kl.rasterize_boxes(rows, m, inv), 50),
+            median_ms(lambda: kl.rasterize_boxes_reference(rows, m, inv), 7)),
+        "rasterize_landmarks": (
+            median_ms(lambda: kl.rasterize_landmarks(lm_rows, m, num_lm), 50),
+            median_ms(lambda: kl.rasterize_landmarks_reference(
+                lm_rows, m, num_lm), 7))}
+    err = max(r.get("max_abs_err", 0.0) for r in results)
+    emit({"phase": "rasterizer_kernels", "results": results,
+          "max_abs_err": err,
+          "median_ms": {n: {"kernel": t[0], "plain": t[1]}
+                        for n, t in times.items()}})
+    if not all(same.values()):
+        raise AssertionError(f"rasterize on the card differs from the CPU: "
+                             f"{same}")
+    b, k = rows.shape[:2]
+    bounds = {
+        "rasterize_boxes": bound(rows.numel() * 4 + b * m * m * 6 * 4,
+                                 b * m * m * k * 12),
+        "rasterize_landmarks": bound(lm_rows.numel() * 4
+                                     + b * m * m * num_lm * 4,
+                                     b * m * m * num_lm * k * 7)}
+    return err, times, bounds
+
+
+def ohem_case(rng, b, p, kind):
+    """(sq, pos, ign, rnd) inputs of ``ohem_select``: 'random' errors with
+    positives and a gray zone; 'tied' (all errors equal: the noise alone
+    orders the hard half); 'no_pos' (min_neg applies); 'short' (fewer
+    candidates than the quota)."""
+    sq = rng.uniform(0, 2, (b, p)).astype(np.float32) ** 2
+    pos = rng.rand(b, p) < 0.03
+    ign = (rng.rand(b, p) < 0.05) & ~pos
+    if kind == "tied":
+        sq[:] = 0.25
+    elif kind == "no_pos":
+        pos[:] = False
+    elif kind == "short":
+        pos = rng.rand(b, p) < 0.6
+        ign = ~pos & (rng.rand(b, p) < 0.9)
+    return sq, pos, ign, rng.rand(b, p).astype(np.float32)
+
+
+def phase_ohem():
+    """Phase 18: the OHEM kernel against its plain version on the card,
+    bitwise, at B=32, P=3600."""
+    import torch
+
+    from densebox_tpu_torch import kitti_vehicle
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.ops.kernels import ohem as ko
+    from densebox_tpu_torch.ops.labels import rasterize
+
+    rng = np.random.RandomState(18)
+    b, p = 32, 3600
+    cases = {kind: [torch.from_numpy(a).cuda()
+                    for a in ohem_case(rng, b, p, kind)]
+             for kind in ("random", "tied", "no_pos", "short")}
+    # squared errors of a real forward: the paper model on a synthetic batch
+    cfg = kitti_vehicle()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes)
+    gts = rasterize(batch["boxes"], batch["box_valid"], cfg.label)
+    with torch.inference_mode():
+        score = init_model(cfg.model, "cuda")(batch["image"])["score"]
+    cases["forward"] = [
+        ((score - gts["score"]) ** 2).reshape(b, p).contiguous(),
+        (gts["score"] > 0.5).reshape(b, p), (gts["ignore"] > 0.5).reshape(b, p),
+        torch.rand((b, p), device="cuda", generator=gen)]
+    results = []
+    for kind, args in cases.items():
+        got = ko.ohem_select(*args, 1.0, 0.5, 16)
+        want = ko.ohem_select_reference(*args, 1.0, 0.5, 16)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        results.append({"case": kind, "shape": [b, p],
+                        "positives": int(args[1].sum()),
+                        "sampled": int(got.sum()), "mismatches": n_diff})
+        if n_diff or not got.any():
+            emit({"phase": "ohem_kernel", "results": results})
+            raise AssertionError(f"OHEM kernel disagrees with its plain "
+                                 f"version ({kind})")
+    args = cases["forward"]
+    times = (median_ms(lambda: ko.ohem_select(*args, 1.0, 0.5, 16), 50),
+             median_ms(lambda: ko.ohem_select_reference(*args, 1.0, 0.5, 16), 5))
+    emit({"phase": "ohem_kernel", "results": results, "max_abs_err": 0.0,
+          "median_ms": {"forward_B32_P3600": {"kernel": times[0],
+                                              "plain": times[1]}}})
+    # 10 bytes read and 1 written per pixel; three 40-step bisections, each
+    # step one compare and one add per pixel
+    return 0.0, times, bound(b * p * 11, b * p * 3 * 40 * 2)
+
+
+def train_cfgs():
+    """(name, config) of the two train cells: the presets at full width in
+    f32, as published (B=32, 240 px patches, K=16)."""
+    from densebox_tpu_torch import kitti_vehicle, malf_face
+
+    return [("kitti_vehicle", kitti_vehicle()), ("malf_face", malf_face())]
+
+
+def phase_step_card_vs_cpu():
+    """Phase 19: one train step on the card against the CPU, full width,
+    f32, B=4, the same state, batch and draws. A float64 step on the CPU
+    gives the rounding noise of float32 gradients themselves (measured on
+    this run: up to 1e-3 of a tensor's largest entry between the CPU's own
+    f32 and f64), which is why the card-against-CPU bar for gradients is
+    5e-3 and not equality."""
+    import torch
+
+    from densebox_tpu_torch import DenseBox
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.models import dropout_keep_mask
+    from densebox_tpu_torch.ops.kernels.ohem import ohem_select
+    from densebox_tpu_torch.ops.labels import rasterize
+    from densebox_tpu_torch.train import create_train_state, make_train_step
+
+    b, grad_tol = 4, 5e-3
+    for name, cfg in train_cfgs():
+        gen = torch.Generator().manual_seed(19)
+        num_lm = cfg.model.num_landmarks
+        batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes,
+                                num_lm, device="cpu")
+        m = cfg.label.map_size
+        heads = 3 if num_lm else 2
+        draws = {"dropout_keep": dropout_keep_mask(
+                     (b, m, m, heads * cfg.model.scaled(cfg.model.head_width)),
+                     cfg.model.dropout_rate, gen),
+                 "ohem_score": torch.rand((b, m * m), generator=gen)}
+        if cfg.model.use_refine:
+            draws["ohem_refined"] = torch.rand((b, m * m), generator=gen)
+        res = {}
+        for dev, dtype in (("cpu", "float32"), ("cuda", "float32"),
+                           ("cpu", "float64")):
+            c = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, compute_dtype=dtype, param_dtype=dtype))
+            model = DenseBox(c.model, device=dev)
+            state = create_train_state(model, c, device=dev)
+            step = make_train_step(model, c, device=dev)
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, draws=draws)
+            res["f64" if dtype == "float64" else dev] = {
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": {k: p.grad.detach().cpu()
+                          for k, p in model.named_parameters()},
+                "seconds": time.perf_counter() - t0}
+        gts_cpu = rasterize(batch["boxes"], batch["box_valid"], cfg.label,
+                            batch.get("landmarks"), batch.get("lm_valid"))
+        on_card = {k: v.cuda() for k, v in batch.items()}
+        gts_card = rasterize(on_card["boxes"], on_card["box_valid"], cfg.label,
+                             on_card.get("landmarks"), on_card.get("lm_valid"))
+        gt_same = {k: bits_equal(gts_card[k].cpu(), gts_cpu[k])
+                   for k in gts_cpu}
+        sq = torch.rand((b, m * m), generator=gen) ** 2
+        pos = (gts_cpu["score"] > 0.5).reshape(b, -1)
+        ign = (gts_cpu["ignore"] > 0.5).reshape(b, -1)
+        mask_cpu = ohem_select(sq, pos, ign, draws["ohem_score"], 1.0, 0.5, 16)
+        mask_card = ohem_select(sq.cuda(), pos.cuda(), ign.cuda(),
+                                draws["ohem_score"].cuda(), 1.0, 0.5, 16)
+        mask_same = bool(torch.equal(mask_card.cpu(), mask_cpu))
+        mc, mg = res["cpu"]["metrics"], res["cuda"]["metrics"]
+        rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
+        gc, gg = res["cpu"]["grads"], res["cuda"]["grads"]
+        grad_rel = {k: float((gg[k] - gc[k]).abs().max() / gc[k].abs().max())
+                    for k in gc}
+        norm = {d: float(torch.sqrt(sum((g.double() ** 2).sum()
+                                        for g in res[d]["grads"].values())))
+                for d in res}
+        worst = max(grad_rel, key=grad_rel.get)
+        g64 = res["f64"]["grads"]
+        vs_f64 = {d: max(float((res[d]["grads"][k] - g64[k]).abs().max()
+                               / g64[k].abs().max()) for k in g64)
+                  for d in ("cpu", "cuda")}
+        emit({"phase": "train_step_card_vs_cpu", "model": f"{name} w1.0 f32",
+              "batch": b, "patch": cfg.label.patch_size, "tf32": False,
+              "gt_maps_equal": gt_same, "ohem_mask_equal": mask_same,
+              "metrics_cpu": mc, "metrics_card": mg, "metrics_rel_err": rel,
+              "metrics_tol": 1e-4, "grad_norm": norm,
+              "grad_norm_rel_err": abs(norm["cuda"] - norm["cpu"]) / norm["cpu"],
+              "grad_max_rel_err": grad_rel[worst], "grad_worst": worst,
+              "grad_tol": grad_tol, "grad_max_rel_err_vs_cpu_f64": vs_f64,
+              "seconds": {d: res[d]["seconds"] for d in res}})
+        if not all(gt_same.values()) or not mask_same:
+            raise AssertionError(f"{name}: GT maps or OHEM mask on the card "
+                                 f"differ from the CPU")
+        if max(rel.values()) > 1e-4:
+            raise AssertionError(f"{name}: train metrics on the card differ "
+                                 f"from the CPU: {rel}")
+        if (grad_rel[worst] > grad_tol
+                or abs(norm["cuda"] - norm["cpu"]) > grad_tol * norm["cpu"]):
+            raise AssertionError(f"{name}: gradients on the card differ from "
+                                 f"the CPU: {grad_rel}")
+
+
+def phase_train(name, cfg, steps, canvas):
+    """Phases 20 and 21: train ``cfg`` at full width on synthetic batches
+    drawn on the card, B = cfg.train.batch_size. With ``canvas`` the batches
+    are 480 px canvases and the step samples its patches on the card.
+    Returns the kernels' launch counts over the timed steps."""
+    import torch
+
+    from densebox_tpu_torch import DenseBox
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.train import (create_train_state,
+                                          make_canvas_train_step,
+                                          make_train_step)
+
+    b, num_lm = cfg.train.batch_size, cfg.model.num_landmarks
+    data_label = (dataclasses.replace(cfg.label, patch_size=480) if canvas
+                  else cfg.label)
+    model = DenseBox(cfg.model)                 # on the card by default
+    state = create_train_state(model, cfg)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    step = (make_canvas_train_step if canvas else make_train_step)(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def one():
+        batch = synthetic_batch(gen, b, data_label, cfg.train.max_boxes, num_lm)
+        return step(state, batch)[1]
+
+    warm = [one() for _ in range(2)]      # cuDNN picks its algorithms here
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = [one() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    metrics = [{k: float(v) for k, v in m.items()} for m in warm + metrics]
+    losses = [m["loss_total"] for m in metrics]
+    moved = max(float((v - before[k]).abs().max())
+                for k, v in model.state_dict().items())
+    finite = all(np.isfinite(v) for m in metrics for v in m.values())
+    want = {"rasterize_boxes": steps,
+            "rasterize_landmarks": steps if num_lm else 0,
+            "ohem": steps * (2 if cfg.model.use_refine else 1)}
+    got = {k: launches[k] for k in want}
+    emit({"phase": f"train_{name}", "model": f"{name} w1.0 f32",
+          "batch": b, "patch": cfg.label.patch_size,
+          "canvas": 480 if canvas else None, "tf32": False,
+          "steps_timed": steps, "steps_warm_up": 2,
+          "ms_per_step": wall / steps * 1e3, "steps_per_s": steps / wall,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    emit({"phase": f"train_{name}_check", "losses": losses,
+          "update_norms": [m["update_norm"] for m in metrics],
+          "n_pos_last": metrics[-1]["n_pos"],
+          "n_sampled_last": metrics[-1]["n_sampled"],
+          "loss_first5": float(np.mean(losses[:5])),
+          "loss_last5": float(np.mean(losses[-5:])), "finite": finite,
+          "max_param_change": moved, "launches": got,
+          "launches_expected": want})
+    if not finite:
+        raise AssertionError(f"train_{name}: a loss or update norm is not finite")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"train_{name}: the loss did not decrease")
+    if got != want or not moved > 0:
+        raise AssertionError(f"train_{name}: kernel launches {got}, want "
+                             f"{want}; parameters moved by {moved}")
+    return launches
+
+
+def conv_library_ms(args) -> float:
+    """One PyTorch call for the int8 conv's function, as its yardstick: the
+    same int8 values as bf16 through ``F.conv2d`` (cuDNN; int8 codes are
+    exact in bf16, sums in f32), without the requant epilogue."""
+    import torch
+    import torch.nn.functional as F
+
+    x, wq = args[:2]
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels_last NCHW
+    wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    pad = wq.shape[1] // 2
+    return median_ms(lambda: F.conv2d(xb, wb, padding=pad), 50)
+
+
 def main() -> int:
     import torch
 
@@ -779,46 +1230,58 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     phase_build()
-    err, (ms, plain_ms) = phase_nms()
+    rows = {}          # kernel name -> (max_abs_err, (ms, plain_ms), bound, library_ms)
+    rows["nms"] = phase_nms() + (None,)
     phase_forward()
 
     launches = {name: phase_serve(f"serve_{name}_bf16", *cfgs)
                 for name, *cfgs in serving_cells()}
-    q_err, (q_ms, q_plain_ms) = phase_qconv()
-    r_err, (r_ms, r_plain_ms) = phase_requant()
+    rows["qconv"] = phase_qconv()
+    rows["requant"] = phase_requant() + (None,)
     phase_forward_int8()
     _, turbo, turbo_infer, label = serving_cells()[1]
     for quant in ("fused", "hybrid"):
         launches[quant] = phase_serve(f"serve_turbo_int8_{quant}", turbo,
                                       turbo_infer, label, quant=quant)
-    w_err, (w_ms, w_plain_ms) = phase_window()
+    rows["window"] = phase_window() + (None,)
     phase_decode_card_vs_cpu()
     for name, *cfgs, quant in landmark_cells():
         launches[name] = phase_serve(f"serve_{name}", *cfgs, quant=quant,
                                      loc_bias=1.0)
 
+    l_err, l_times, l_bounds = phase_rasterizers()
+    for name in l_times:
+        rows[name] = (l_err, l_times[name], l_bounds[name], None)
+    rows["ohem"] = phase_ohem() + (None,)
+    phase_step_card_vs_cpu()
+    (_, kitti), (_, malf) = train_cfgs()
+    launches["train_kitti"] = phase_train("kitti_vehicle", kitti, 30, False)
+    launches["train_malf"] = phase_train("malf_face", malf, 12, True)
+
+    # (name, source, TPU kernel it replaces, the main-path run its launch
+    # count is read from, its counter)
+    table = [
+        ("greedy_nms_keep", "nms", "nms.py:28", "paper", "nms"),
+        ("qconv_int8", "qconv", "qconv.py:59", "fused", "qconv"),
+        ("requant_epilogue", "requant", "requant.py:35", "hybrid", "requant"),
+        ("gather_windows", "window", "window.py:53", "malf_bf16", "window"),
+        ("rasterize_boxes", "labels", "labels.py:46", "train_kitti",
+         "rasterize_boxes"),
+        ("rasterize_landmarks", "labels", "labels.py:79", "train_malf",
+         "rasterize_landmarks"),
+        ("ohem_select", "ohem", "ohem.py:53", "train_kitti", "ohem")]
     print(card, flush=True)
-    emit({"kernels": [
-        {"name": "greedy_nms_keep", "route": "cuda",
-         "source": "densebox_tpu_torch/csrc/nms.cu",
-         "replaces": "densebox_tpu/ops/pallas/nms.py:28",
-         "launches": launches["paper"]["nms"], "max_abs_err": err,
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "qconv_int8", "route": "cuda",
-         "source": "densebox_tpu_torch/csrc/qconv.cu",
-         "replaces": "densebox_tpu/ops/pallas/qconv.py:59",
-         "launches": launches["fused"]["qconv"], "max_abs_err": q_err,
-         "ms": q_ms, "plain_ms": q_plain_ms},
-        {"name": "requant_epilogue", "route": "cuda",
-         "source": "densebox_tpu_torch/csrc/requant.cu",
-         "replaces": "densebox_tpu/ops/pallas/requant.py:35",
-         "launches": launches["hybrid"]["requant"], "max_abs_err": r_err,
-         "ms": r_ms, "plain_ms": r_plain_ms},
-        {"name": "gather_windows", "route": "cuda",
-         "source": "densebox_tpu_torch/csrc/window.cu",
-         "replaces": "densebox_tpu/ops/pallas/window.py:53",
-         "launches": launches["malf_bf16"]["window"], "max_abs_err": w_err,
-         "ms": w_ms, "plain_ms": w_plain_ms}]})
+    kernels = []
+    for name, src, replaces, run, counter in table:
+        err, (ms, plain_ms), (bound_ms, bound_by), library_ms = rows[counter]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"densebox_tpu_torch/csrc/{src}.cu",
+            "replaces": f"densebox_tpu/ops/pallas/{replaces}",
+            "launches": launches[run][counter], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

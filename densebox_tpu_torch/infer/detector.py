@@ -25,7 +25,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from densebox_tpu.config import InferCfg, LabelCfg
+from densebox_tpu_torch.config import InferCfg, LabelCfg
 from densebox_tpu_torch.infer.resize import resize_linear
 from densebox_tpu_torch.ops.decode import decode_topk, div, rdiv, topk_stable
 from densebox_tpu_torch.ops.nms import nms

@@ -6,6 +6,9 @@ downscaling (``antialias=True``, its default). ``F.interpolate`` does
 neither in the same way, so this module builds the same per-axis weight
 matrices (as ``jax/_src/image/scale.py:compute_weight_mat`` does, in
 float32) and applies them as two matrix products, as jax does.
+``weight_matrices`` does the same for ``jax.image.scale_and_translate``
+with a scale and a translation per sample (the training patch crop), on the
+device.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from densebox_tpu_torch.ops.decode import rdiv
 
 
 def weight_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -34,6 +39,34 @@ def weight_matrix(n_in: int, n_out: int) -> np.ndarray:
     inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
     return np.ascontiguousarray(
         np.where(inside[None, :], weights, f32(0.0)).T.astype(f32))
+
+
+def weight_matrices(n_in: int, n_out: int, scale: torch.Tensor,
+                    translation: torch.Tensor) -> torch.Tensor:
+    """(B, n_in, n_out) float32 resampling weights of
+    ``jax.image.scale_and_translate(..., method="linear")`` along one axis,
+    for (B,) float32 per-sample ``scale`` and ``translation`` on their
+    device: output sample o reads input position
+    (o + 0.5 - translation) / scale - 0.5 through a triangle filter, widened
+    by 1 / scale when downscaling (antialias); weights are normalised per
+    output sample and zero where the position falls outside the input.
+    Operation by operation as ``compute_weight_mat`` of
+    ``jax/_src/image/scale.py``."""
+    dev = scale.device
+    inv_scale = rdiv(1.0, scale)[:, None]                         # (B, 1)
+    kernel_scale = inv_scale.clamp(min=1.0)
+    out_pos = torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5
+    sample_f = out_pos * inv_scale - translation[:, None] * inv_scale - 0.5
+    in_pos = torch.arange(n_in, dtype=torch.float32, device=dev)
+    x = (sample_f[:, None, :] - in_pos[:, None]).abs() / kernel_scale[:, None]
+    weights = (1.0 - x.abs()).clamp(min=0.0)                      # triangle
+    total = weights.sum(dim=1, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    weights = torch.where(
+        total.abs() > eps,
+        weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[:, None, :], weights, 0.0)
 
 
 @functools.lru_cache(maxsize=None)

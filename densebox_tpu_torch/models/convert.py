@@ -1,5 +1,6 @@
-"""Weights for the port's DenseBox: from a Flax param tree, or fresh; and
-the int8 model's state from the JAX package's qparams.
+"""Weights for the port's DenseBox: from a Flax param tree, or fresh; a
+whole train state from the JAX package's; and the int8 model's state from
+the JAX package's qparams.
 
 ``from_flax`` maps the JAX model's parameter tree onto the port's
 ``state_dict``: the same names with '.' for '/' (``det/det_conv1`` ->
@@ -11,12 +12,12 @@ one mapping serves checkpoints of either.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-from densebox_tpu.config import ModelCfg
+from densebox_tpu_torch.config import ModelCfg
 from densebox_tpu_torch.models.densebox import DenseBox
 from densebox_tpu_torch.models.quant import QuantDenseBox
 
@@ -71,6 +72,17 @@ def from_flax(params: Mapping, cfg: ModelCfg) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unexpected Flax leaf {name!r}")
     _check_matches(sd, _expected(cfg), "Flax tree")
     return sd
+
+
+def state_from_jax(params: Mapping, trace: Mapping, step, cfg: ModelCfg
+                   ) -> Tuple[Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor], int]:
+    """A JAX train state as numpy -> what ``train.loop.TrainState.load``
+    takes: ``params`` (the Flax tree) and ``trace`` (the optax SGD momentum
+    trace, a tree of the same structure) both become float32 dicts with the
+    model's parameter names (kernels and their traces HWIO -> OIHW, exactly
+    as ``from_flax``), ``step`` (the optimizer's count) an int."""
+    return from_flax(params, cfg), from_flax(trace, cfg), int(step)
 
 
 def qparams_from_jax(qparams: Mapping, cfg: ModelCfg

@@ -1,4 +1,4 @@
-"""DenseBox model — eval forward in PyTorch.
+"""DenseBox model in PyTorch: eval and train forward.
 
 Port of ``densebox_tpu/models/densebox.py`` (the reference it is tested
 against): the VGG-FCN trunk of ``trunk_plan``, the x2 align-corners skip
@@ -6,10 +6,12 @@ upsample, the fused det/loc[/lm] heads and the landmark refine branch.
 
 Only the JAX package's resolved defaults exist here, with no knob: skip
 fusion 'split' (each head conv1 is two sliced-weight products over f3 and
-the upsampled f4, the concat never built) and head_impl 'fused' (one conv1
-product over the Cout-concatenated weights, one block-diagonal conv2).
-Dropout is the identity in eval, so none of the training-side dropout or
-pool backends are needed.
+the upsampled f4, the concat never built), head_impl 'fused' (one conv1
+product over the Cout-concatenated weights, one block-diagonal conv2, one
+dropout draw over the fused hidden tensor) and, in training, the fused
+relu+dropout whose backward reads only its output (``fused_relu_dropout``),
+its keep mask drawn from random bytes where the rate is a multiple of 1/256.
+The max-pool is torch's.
 
 Layouts: the public forward takes NHWC images and returns NHWC float32 maps,
 as the JAX model does. Inside, the trunk runs on NCHW tensors in
@@ -20,14 +22,16 @@ the two views is a free ``permute``.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from densebox_tpu.config import ModelCfg
+from densebox_tpu_torch.config import ModelCfg
+from densebox_tpu_torch.device import resolve_device
+from densebox_tpu_torch.ops.decode import div
 
 # (kind, name, base_width): the paper trunk, VGG19 through conv4_4.
 TRUNK_PLAN = (
@@ -135,23 +139,81 @@ def _nhwc_rows(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
 
 
+def dropout_plan(rate: float) -> Tuple[int, float]:
+    """(byte threshold, keep probability) of a dropout rate. Where ``rate``
+    is a multiple of 1/256 inside (0, 1), one random byte per element
+    decides: keep iff byte >= threshold = rate * 256 (a quarter of the random
+    bits of a float draw). Any other rate has threshold 0: the mask is drawn
+    from uniforms at the exact rate."""
+    thresh = int(round(rate * 256))
+    if 0 < thresh < 256 and thresh / 256.0 == rate:
+        return thresh, 1.0 - thresh / 256.0
+    return 0, 1.0 - rate
+
+
+def dropout_keep_mask(shape, rate: float, generator: torch.Generator
+                      ) -> torch.Tensor:
+    """Draw the bool keep mask of ``dropout_plan(rate)`` on the generator's
+    device: byte >= threshold, or u < keep probability."""
+    thresh, keep_prob = dropout_plan(rate)
+    if thresh:
+        byts = torch.randint(0, 256, shape, dtype=torch.uint8,
+                             device=generator.device, generator=generator)
+        return byts >= thresh
+    return torch.rand(shape, device=generator.device,
+                      generator=generator) < keep_prob
+
+
+class _FusedReluDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keep, keep_prob):
+        y = torch.where(keep, div(torch.relu(x), keep_prob), 0)
+        ctx.save_for_backward(y)
+        ctx.keep_prob = keep_prob
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return torch.where(y > 0, div(g, ctx.keep_prob), 0), None, None
+
+
+def fused_relu_dropout(x: torch.Tensor, keep: torch.Tensor, keep_prob: float
+                       ) -> torch.Tensor:
+    """``where(keep, relu(x) / keep_prob, 0)`` for a bool ``keep`` of x's
+    shape. Backward is ``g * (y > 0) / keep_prob`` from the output y alone
+    (y > 0 iff kept and x > 0), so neither x nor the mask is saved: y is the
+    only tensor kept for backward, and the next product keeps it anyway."""
+    return _FusedReluDropout.apply(x, keep, keep_prob)
+
+
 class DenseBox(nn.Module):
-    """The DenseBox FCN, eval forward. Parameter names follow the Flax tree
-    (``conv1_1``, ``det.det_conv1``, ``refine_out``, ...) so that
+    """The DenseBox FCN. Parameter names follow the Flax tree (``conv1_1``,
+    ``det.det_conv1``, ``refine_out``, ...) so that
     ``models.convert.from_flax`` loads a JAX checkpoint as it is.
 
-    Weights are held in ``cfg.compute_dtype`` (the JAX model casts its f32
-    params to that dtype at every use, which gives the same numbers).
+    Parameters are held in ``cfg.param_dtype`` and cast to
+    ``cfg.compute_dtype`` where they are used, as in the JAX model: an
+    optimizer then updates float32 weights under a bfloat16 forward. A
+    bfloat16 server that never trains can set ``param_dtype="bfloat16"`` to
+    hold the weights in bfloat16 and save the casts; the numbers are the
+    same. Built on the card unless ``device`` names another device.
+
     Call with NHWC images (H, W divisible by ``cfg.min_divisor``); returns a
     dict of stride-4 NHWC float32 maps: ``score`` (B, H/4, W/4, 1), ``loc``
     (..., 4) and, with landmarks, ``lm`` (..., L) and ``refined`` (..., 1).
+    ``train=True`` applies dropout (rate ``cfg.dropout_rate``) to the heads'
+    hidden tensor, from ``generator`` (a ``torch.Generator`` on the images'
+    device) or from a given bool ``dropout_keep`` mask of shape
+    (B, H/4, W/4, heads * width). ``nn.Module.training`` is not read.
     """
 
     def __init__(self, cfg: ModelCfg, device=None):
         super().__init__()
         self.cfg = cfg
         self.plan = trunk_plan(cfg)
-        kw = dict(device=device, dtype=getattr(torch, cfg.compute_dtype))
+        kw = dict(device=resolve_device(device),
+                  dtype=getattr(torch, cfg.param_dtype))
         cin, c3 = 3, None
         for kind, name, width in self.plan:
             if kind == "conv":
@@ -181,27 +243,48 @@ class DenseBox(nn.Module):
             self.refine_out = nn.Conv2d(rw, 1, 1, **kw)
         self.to(memory_format=torch.channels_last)
 
-    def _heads(self, f3: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-        """All heads as one conv1 product (split over f3 / up) and one
-        block-diagonal conv2 product. f3 channels_last NCHW, up NHWC.
-        Returns (B, h, w, sum(out)) NHWC in the compute dtype."""
+    def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """``conv`` with its parameters cast to x's dtype."""
+        return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                        padding=conv.padding)
+
+    def _heads(self, f3: torch.Tensor, up: torch.Tensor, train: bool,
+               generator, dropout_keep) -> torch.Tensor:
+        """All heads as one conv1 product (split over f3 / up), one relu (in
+        training one relu+dropout) and one block-diagonal conv2 product. f3
+        channels_last NCHW, up NHWC. Returns (B, h, w, sum(out)) NHWC in the
+        compute dtype."""
+        dtype = up.dtype
         heads = [getattr(self, pfx) for pfx, _ in self.head_spec]
         conv1 = [h[f"{p}_conv1"] for h, (p, _) in zip(heads, self.head_spec)]
         conv2 = [h[f"{p}_conv2"] for h, (p, _) in zip(heads, self.head_spec)]
-        k1 = torch.cat([c.weight[:, :, 0, 0] for c in conv1])   # (n*W, Cin)
-        b1 = torch.cat([c.bias for c in conv1])
+        k1 = torch.cat([c.weight[:, :, 0, 0] for c in conv1]).to(dtype)
+        b1 = torch.cat([c.bias for c in conv1]).to(dtype)    # k1 (n*W, Cin)
         ca = f3.shape[1]
         # bias and the second partial product accumulate in the GEMM epilogue
         y = torch.addmm(b1, _nhwc_rows(f3), k1[:, :ca].t())
-        y = y.addmm_(up.reshape(-1, up.shape[-1]), k1[:, ca:].t()).relu_()
-        # (dropout is the identity in eval)
-        k2 = torch.block_diag(*[c.weight[:, :, 0, 0] for c in conv2])
-        b2 = torch.cat([c.bias for c in conv2])
+        y = y.addmm_(up.reshape(-1, up.shape[-1]), k1[:, ca:].t())
+        if train and self.cfg.dropout_rate > 0.0:
+            if dropout_keep is None:
+                if generator is None:
+                    raise ValueError("DenseBox: a train forward with dropout "
+                                     "needs a generator or a dropout_keep mask")
+                dropout_keep = dropout_keep_mask(
+                    y.shape, self.cfg.dropout_rate, generator)
+            y = fused_relu_dropout(y, dropout_keep.reshape(y.shape),
+                                   dropout_plan(self.cfg.dropout_rate)[1])
+        else:
+            y = y.relu_()
+        k2 = torch.block_diag(*[c.weight[:, :, 0, 0] for c in conv2]).to(dtype)
+        b2 = torch.cat([c.bias for c in conv2]).to(dtype)
         z = torch.addmm(b2, y, k2.t())
         b, _, h, w = f3.shape
         return z.reshape(b, h, w, -1)
 
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                dropout_keep: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         check_divisible(cfg, images)
         dtype = getattr(torch, cfg.compute_dtype)
@@ -209,7 +292,7 @@ class DenseBox(nn.Module):
         f3 = None
         for kind, name, _ in self.plan:
             if kind == "conv":
-                x = torch.relu(getattr(self, name)(x))
+                x = torch.relu(self._conv(getattr(self, name), x))
                 if name == self.f3_tap:
                     f3 = x
             elif kind in ("s2d", "s2d4"):
@@ -218,7 +301,7 @@ class DenseBox(nn.Module):
             else:
                 x = F.max_pool2d(x, 2, 2)
         up = upsample2x_align_corners(x.permute(0, 2, 3, 1))
-        z = self._heads(f3, up)
+        z = self._heads(f3, up, train, generator, dropout_keep)
         score, loc = z[..., 0:1], z[..., 1:5]
         out = {"score": score.float(), "loc": loc.float()}
         if cfg.num_landmarks:
@@ -226,7 +309,8 @@ class DenseBox(nn.Module):
             out["lm"] = lm.float()
             if cfg.use_refine:
                 r = torch.cat([score, lm], dim=-1).permute(0, 3, 1, 2)
-                r = torch.relu(self.refine_conv1(r))
-                r = torch.relu(self.refine_conv2(r))
-                out["refined"] = self.refine_out(r).permute(0, 2, 3, 1).float()
+                r = torch.relu(self._conv(self.refine_conv1, r))
+                r = torch.relu(self._conv(self.refine_conv2, r))
+                out["refined"] = self._conv(self.refine_out, r).permute(
+                    0, 2, 3, 1).float()
         return out

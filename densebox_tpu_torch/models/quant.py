@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from densebox_tpu.config import ModelCfg
+from densebox_tpu_torch.config import ModelCfg
+from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.models.densebox import (DenseBox, check_divisible,
                                                 space_to_depth, trunk_plan,
                                                 upsample2x_align_corners)
@@ -185,7 +186,8 @@ class QuantDenseBox(nn.Module):
     returns a dict of stride-4 NHWC float32 maps: ``score``, ``loc`` and,
     with landmarks, ``lm`` and ``refined``. State names follow the JAX
     qparams tree with '.' for '/' (``det.det_conv1.w_q``, ``f4_scale``).
-    All state is buffers; the module has no parameters.
+    All state is buffers; the module has no parameters. Built on the card
+    unless ``device`` names another device.
     """
 
     def __init__(self, cfg: ModelCfg, backend: str = "fused", device=None):
@@ -193,6 +195,7 @@ class QuantDenseBox(nn.Module):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
+        device = resolve_device(device)
         self.cfg = cfg
         self.backend = backend
         self.plan = trunk_plan(cfg)

@@ -12,13 +12,12 @@ Same contract as the JAX server:
   * ``stats`` counts requests and device calls.
 
 The batch is assembled in one pinned host buffer and copied to the model's
-device without blocking. For HTTP, ``densebox_tpu.serve.make_http_server``
-takes this server as it is (it only calls ``submit`` and reads ``stats``).
+device without blocking. An HTTP front end needs only ``submit`` and
+``stats`` of this server.
 """
 
 from __future__ import annotations
 
-import itertools
 import queue
 import threading
 import time
@@ -27,21 +26,22 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.infer.detector import make_detect_fn
 
 
 class DetectServer:
-    """Request-coalescing wrapper around the port's detect function, on the
-    device that holds ``model``'s weights (``DenseBox`` or the int8
-    ``QuantDenseBox``)."""
+    """Request-coalescing wrapper around the port's detect function for a
+    ``DenseBox`` or the int8 ``QuantDenseBox``. The model is moved to
+    ``device``: the card when none is given (raising without one), the CPU
+    only on ``device="cpu"``."""
 
     def __init__(self, model, infer_cfg, label_cfg,
                  canvas_hw: Tuple[int, int] = (480, 640),
-                 max_batch: int = 8, batch_window_ms: float = 15.0):
-        # the int8 model keeps all its state in buffers, the float one in
-        # parameters
-        self.device = next(itertools.chain(model.parameters(),
-                                           model.buffers())).device
+                 max_batch: int = 8, batch_window_ms: float = 15.0,
+                 device=None):
+        self.device = resolve_device(device)
+        model.to(self.device)
         self.canvas_hw = canvas_hw
         self.max_batch = max_batch
         self.window_s = batch_window_ms / 1e3

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where a device call of the port's serving path spends its time.
+"""Where a device call of the port's serving path, and a train step, spend
+their time.
 
     python3 profile_port.py [--calls 5]     # from the repository root, one CUDA card
 
@@ -15,6 +16,16 @@ Prints one JSON line per probe, after the card's name and power limit:
               torch.profiler trace of --calls calls: kernel time by kind,
               the top kernels, and the device's idle share (1 - kernel time
               / wall time of the traced calls);
+  train       for the two train cells (chip_smoke.py's phases 20 and 21:
+              train_paper = kitti_vehicle(), train_malf = malf_face() through
+              the canvas step; full width, f32 with TF32 off, B=32, 240 px
+              patches, synthetic batches drawn on the card): a step on the
+              host clock around a synchronised step (median, q1, q3 of 10),
+              then a trace of --calls steps: kernel time by kind (forward
+              and backward convolutions, GEMMs, elementwise, the rasterizer
+              and OHEM kernels, the optimizer's foreach kernels) and the
+              idle share; the same two cells again with compute_dtype
+              bfloat16 (float32 parameters cast at use);
   fused_conv  the paper model's conv1_2 at B=8, 480x640, bf16: nn.Conv2d
               and ReLU as the model runs them, against cuDNN's fused
               conv+bias+ReLU (torch.cudnn_convolution_relu), by CUDA events,
@@ -27,13 +38,14 @@ Without a CUDA card it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
 import numpy as np
 
 from chip_smoke import (card_line, emit, init_model, init_quant_model,
-                        landmark_cells, median_ms, serving_cells,
+                        landmark_cells, median_ms, serving_cells, train_cfgs,
                         with_live_threshold)
 
 CANVAS = (8, 480, 640, 3)
@@ -47,13 +59,21 @@ def kernel_kind(name: str) -> str:
             ("int8_conv_kernel", ("qconv_kernel",)),
             ("requant_kernel", ("requant_kernel",)),
             ("window_kernel", ("window_kernel",)),
+            ("rasterizer_kernel", ("boxes_kernel", "landmarks_kernel")),
+            ("ohem_kernel", ("ohem_kernel",)),
+            ("optimizer", ("multi_tensor_apply",)),
             ("sort", ("sort", "radix")),
             ("max_pool", ("max_pool",)),
             ("relu", ("clamp",)),
             ("add", ("functor_add",)),        # mostly nn.Conv2d's bias
+            ("conv_backward", ("dgrad", "wgrad", "bprop", "backward_data",
+                               "backward_filter", "bwd")),
             ("conv", ("conv", "cudnn", "implicit", "xmma_fprop")),
             ("gemm", ("gemm", "cutlass", "matmul", "nvjet")),
-            ("copy", ("memcpy", "memset"))):
+            ("copy", ("memcpy", "memset")),
+            ("elementwise", ("vectorized_elementwise_kernel",
+                             "native::elementwise_kernel",
+                             "unrolled_elementwise_kernel"))):
         if any(k in n for k in keys):
             return kind
     return "other"
@@ -75,23 +95,13 @@ def host_ms(fn, reps: int):
             float(np.percentile(times, 75))]
 
 
-def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls,
-               quant=None, loc_bias=0.0):
+def trace_calls(call, calls):
+    """A torch.profiler trace of ``calls`` calls: wall and kernel time per
+    call, kernel time by kind, the top kernels and the device's idle
+    share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from densebox_tpu_torch.infer import make_detect_fn
-
-    model = (init_quant_model(model_cfg, host.cuda(), quant, loc_bias=loc_bias)
-             if quant else init_model(model_cfg, "cuda", loc_bias=loc_bias))
-    infer_cfg = with_live_threshold(model, host.cuda(), infer_cfg)
-    detect = make_detect_fn(model, infer_cfg, label_cfg)
-
-    def call():
-        out = detect(host.to("cuda", non_blocking=True))
-        return {k: v.cpu() for k, v in out.items()}
-
-    res = {"probe": "cell", "cell": name, "device_call_ms": host_ms(call, 20)}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -107,11 +117,62 @@ def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls,
         by_kind[kernel_kind(ev.key)] = by_kind.get(kernel_kind(ev.key), 0) + ms
         top.append((ms, ev.count // calls, ev.key[:100]))
     kernel = sum(by_kind.values())
-    res.update({"traced_calls": calls, "wall_ms_per_call": wall / calls,
-                "kernel_ms_per_call": kernel,
-                "device_idle_share": 1 - kernel * calls / wall,
-                "kernel_ms_per_call_by_kind": by_kind,
-                "top_kernels_ms_launches_per_call": sorted(top)[::-1][:12]})
+    return {"traced_calls": calls, "wall_ms_per_call": wall / calls,
+            "kernel_ms_per_call": kernel,
+            "device_idle_share": 1 - kernel * calls / wall,
+            "kernel_ms_per_call_by_kind": by_kind,
+            "top_kernels_ms_launches_per_call": sorted(top)[::-1][:12]}
+
+
+def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls,
+               quant=None, loc_bias=0.0):
+    from densebox_tpu_torch.infer import make_detect_fn
+
+    model = (init_quant_model(model_cfg, host.cuda(), quant, loc_bias=loc_bias)
+             if quant else init_model(model_cfg, "cuda", loc_bias=loc_bias))
+    infer_cfg = with_live_threshold(model, host.cuda(), infer_cfg)
+    detect = make_detect_fn(model, infer_cfg, label_cfg)
+
+    def call():
+        out = detect(host.to("cuda", non_blocking=True))
+        return {k: v.cpu() for k, v in out.items()}
+
+    res = {"probe": "cell", "cell": name, "device_call_ms": host_ms(call, 20)}
+    res.update(trace_calls(call, calls))
+    return res
+
+
+def probe_train(name, cfg, canvas, calls):
+    """A train cell: the step of chip_smoke.py's phase 20 (patch batches) or
+    21 (``canvas``: 480 px canvases, patches sampled on the card)."""
+    import torch
+
+    from densebox_tpu_torch import DenseBox
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.train import (create_train_state,
+                                          make_canvas_train_step,
+                                          make_train_step)
+
+    data_label = (dataclasses.replace(cfg.label, patch_size=480) if canvas
+                  else cfg.label)
+    model = DenseBox(cfg.model)
+    state = create_train_state(model, cfg)
+    step = (make_canvas_train_step if canvas else make_train_step)(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def call():
+        batch = synthetic_batch(gen, cfg.train.batch_size, data_label,
+                                cfg.train.max_boxes, cfg.model.num_landmarks)
+        return step(state, batch)[1]
+
+    call()                                   # cuDNN picks its algorithms
+    res = {"probe": "train", "cell": name,
+           "compute_dtype": cfg.model.compute_dtype,
+           "batch": cfg.train.batch_size, "patch": cfg.label.patch_size,
+           "canvas": 480 if canvas else None, "step_ms": host_ms(call, 10)}
+    res["steps_per_s"] = 1e3 / res["step_ms"][0]
+    res.update(trace_calls(call, calls))
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return res
 
 
@@ -206,6 +267,13 @@ def main(argv=None) -> int:
     for name, *cfgs, quant in landmark_cells():
         emit(probe_cell(name, *cfgs, host, args.calls, quant=quant,
                         loc_bias=1.0))
+    for dtype in ("float32", "bfloat16"):
+        for (preset, cfg), cell in zip(train_cfgs(),
+                                       ("train_paper", "train_malf")):
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, compute_dtype=dtype))
+            emit(probe_train(cell, cfg, preset == "malf_face", args.calls))
+            torch.cuda.empty_cache()
     _, paper, paper_infer, _ = cells[0]
     emit(probe_fused_conv(paper))
     emit(probe_resize(paper_infer, host))

@@ -43,7 +43,7 @@ def models():
     cfg = ModelCfg(width_mult=0.125)
     jmodel = JaxDenseBox(cfg)
     params = jmodel.init(jax.random.key(1), jnp.zeros((1, 96, 128, 3)))
-    port = DenseBox(cfg)
+    port = DenseBox(cfg, device="cpu")
     port.load_state_dict(from_flax(jax.tree.map(np.asarray, params), cfg))
     return jmodel, params, port.eval()
 
@@ -105,7 +105,7 @@ def test_server_submit_matches_jax(models):
         params, jnp.asarray(canvas))
     want = {k: np.asarray(v) for k, v in want.items()}
     server = DetectServer(port, infer, LABEL, canvas_hw=(96, 128),
-                          max_batch=2, batch_window_ms=1.0)
+                          max_batch=2, batch_window_ms=1.0, device="cpu")
     try:
         dets = server.submit(img)
     finally:
@@ -123,7 +123,7 @@ def test_server_coalesces_concurrent_requests(models):
     _, _, port = models
     server = DetectServer(port, _infer_cfg((1.0,)), LABEL,
                           canvas_hw=(96, 128), max_batch=4,
-                          batch_window_ms=50.0)
+                          batch_window_ms=50.0, device="cpu")
     imgs = list(_images(5, b=6))
     results = [None] * 6
 
@@ -152,28 +152,28 @@ import sys
 import numpy as np
 import torch
 import chip_smoke, profile_port  # noqa: F401,E401 (module-level imports count)
-from densebox_tpu.config import InferCfg, LabelCfg, ModelCfg
-from densebox_tpu.serve import make_http_server
+from densebox_tpu_torch import InferCfg, LabelCfg, ModelCfg
 from densebox_tpu_torch.models import DenseBox, init_params
 from densebox_tpu_torch.serve import DetectServer
 
 cfg = ModelCfg(width_mult=0.125)
-model = DenseBox(cfg)
+model = DenseBox(cfg, device="cpu")
 model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
 infer = InferCfg(scales=(0.5, 1.0), score_thresh=-1e9, topk_per_scale=16,
                  pre_nms_topk=24, max_dets=8)
 server = DetectServer(model, infer, LabelCfg(), canvas_hw=(64, 96),
-                      max_batch=2, batch_window_ms=1.0)
-httpd = make_http_server(server, "127.0.0.1", 0)
+                      max_batch=2, batch_window_ms=1.0, device="cpu")
 try:
     dets = server.submit(np.random.RandomState(0).rand(64, 80, 3)
                          .astype(np.float32))
 finally:
-    httpd.server_close()
     server.close()
 assert len(dets["boxes"]) == 8, dets
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "flax", "jaxlib"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "flax", "jaxlib", "densebox_tpu"))
+# the JAX package's HTTP front end serves the port's server as it is
+from densebox_tpu.serve import make_http_server
+make_http_server(server, "127.0.0.1", 0).server_close()
 print("LOADED", loaded)
 sys.exit(1 if loaded else 0)
 """
@@ -182,7 +182,7 @@ sys.exit(1 if loaded else 0)
 def test_port_loads_no_jax():
     """A CPU detect-and-serve round trip through the port, in a fresh
     interpreter (this one has jax loaded by conftest), loads no jax, flax
-    or jaxlib module."""
+    or jaxlib module and no module of the JAX package."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)

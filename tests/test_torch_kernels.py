@@ -1,5 +1,6 @@
 """The CUDA kernels (greedy NMS, int8 conv, requant epilogue, landmark window
-gather) against their plain PyTorch versions.
+gather, the two GT rasterizers, OHEM selection) against their plain PyTorch
+versions.
 
 These tests need a CUDA card (marker ``gpu``) and skip without one. This
 file imports no jax, so on a machine with a card and no JAX they run as
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from densebox_tpu_torch.ops.kernels import labels as klabels
 from densebox_tpu_torch.ops.kernels import nms as knms
+from densebox_tpu_torch.ops.kernels import ohem as kohem
 from densebox_tpu_torch.ops.kernels import qconv as kqconv
 from densebox_tpu_torch.ops.kernels import requant as krequant
 from densebox_tpu_torch.ops.kernels import window as kwindow
@@ -134,7 +137,7 @@ def test_detect_on_card_matches_cpu(cuda):
     """The whole det path (resize, forward, decode, kernel NMS) on the card
     against the CPU run, f32 with TF32 off; boxes to 1e-2 px (cuDNN's
     summation order moves maps by ~1e-6)."""
-    from densebox_tpu.config import InferCfg, LabelCfg, ModelCfg
+    from densebox_tpu_torch.config import InferCfg, LabelCfg, ModelCfg
     from densebox_tpu_torch.infer import make_detect_fn
     from densebox_tpu_torch.models import DenseBox, init_params
 
@@ -314,3 +317,151 @@ def test_window_wrapper_refuses_other_devices():
     org = torch.zeros(1, 3, 1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         kwindow.gather_windows(maps, sel, org, org, 4)
+
+
+def label_rows(seed, b, k, m, num_lm):
+    """Packed rasterizer rows as numpy float32: box rows (B, K, 8) =
+    [cx, cy, rc2, rg2, x1, y1, x2, y2] and landmark rows (B, K*L, 3) =
+    [lx, ly, r2]. Half the centres are integers with integer radii, so that
+    pixels lie exactly on a disc's rim (d2 == rc2); a quarter of the slots
+    are never positive (rc2 = -1), an eighth never gray either; patch 0 is
+    empty; where K >= 2, patch 1 holds two boxes with one centre and (K >= 4)
+    two whose centres are equidistant from a column of pixels."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(0, m, (b, k, 2))
+    r = rng.uniform(0.5, m / 4, (b, k))
+    integer = rng.rand(b, k) < 0.5
+    c = np.where(integer[..., None], np.round(c), c)
+    r = np.where(integer, np.maximum(np.round(r), 1), r)
+    kind = rng.rand(b, k)
+    rc2 = np.where(kind < 0.25, -1.0, r * r)
+    rg2 = np.where(kind < 0.125, -1.0, (r + 2) ** 2)
+    half = rng.uniform(1, m / 3, (b, k, 2))
+    rows = np.stack([c[..., 0], c[..., 1], rc2, rg2,
+                     c[..., 0] - half[..., 0], c[..., 1] - half[..., 1],
+                     c[..., 0] + half[..., 0], c[..., 1] + half[..., 1]], -1)
+    rows[0, :, 2:4] = -1.0
+    if b > 1 and k >= 2:
+        rows[1, 0, :4] = [m // 2, m // 2, 9.0, 25.0]
+        rows[1, 1, :4] = rows[1, 0, :4]
+    if b > 1 and k >= 4:
+        rows[1, 2, :4] = [2.0, 3.0, 16.0, 36.0]
+        rows[1, 3, :4] = [6.0, 3.0, 16.0, 36.0]
+    lm = np.concatenate([rng.uniform(-2, m + 2, (b, k * num_lm, 2)),
+                         np.where(rng.rand(b, k * num_lm, 1) < 0.3, -1.0, 1.0)],
+                        -1)
+    lm[:, ::2, :2] = np.round(lm[:, ::2, :2])      # rim-exact: d2 == 1
+    return rows.astype(np.float32), lm.astype(np.float32)
+
+
+# (B, K, M, L): the training shape, a ragged one and a single pixel row
+LABEL_SHAPES = [(32, 16, 60, 5), (3, 1, 8, 1), (2, 5, 17, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=str)
+def test_rasterizer_kernels_match_plain_versions(cuda, shape):
+    b, k, m, num_lm = shape
+    rows, lm_rows = (torch.from_numpy(a).to(cuda)
+                     for a in label_rows(sum(shape), *shape))
+    before = dict(klabels.launches)
+    got = klabels.rasterize_boxes(rows, m, 0.08)
+    got_lm = klabels.rasterize_landmarks(lm_rows, m, num_lm)
+    torch.cuda.synchronize()
+    assert klabels.launches == {k_: v + 1 for k_, v in before.items()}
+    want = klabels.rasterize_boxes_reference(rows, m, float(np.float32(0.08)))
+    want_lm = klabels.rasterize_landmarks_reference(lm_rows, m, num_lm)
+    assert got[0].sum() > 0 or b * k < 4
+    for g, w in zip(got + (got_lm,), want + (want_lm,)):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_rasterizer_wrapper_checks(cuda):
+    rows = torch.zeros(2, 4, 8, device=cuda)
+    with pytest.raises(TypeError):
+        klabels.rasterize_boxes(rows.double(), 8, 0.08)
+    with pytest.raises(ValueError, match="rows"):
+        klabels.rasterize_boxes(rows[..., :7].contiguous(), 8, 0.08)
+    with pytest.raises(ValueError, match="contiguous"):
+        klabels.rasterize_boxes(torch.zeros(2, 8, 4, device=cuda)
+                                .transpose(1, 2), 8, 0.08)
+    with pytest.raises(ValueError, match="rows per patch"):
+        klabels.rasterize_boxes(torch.zeros(1, 1025, 8, device=cuda), 8, 0.08)
+    with pytest.raises(ValueError, match="K\\*L"):
+        klabels.rasterize_landmarks(torch.zeros(2, 7, 3, device=cuda), 8, 2)
+
+
+def test_rasterizer_wrapper_refuses_other_devices():
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        klabels.rasterize_boxes(torch.zeros(1, 2, 8, device="meta"), 8, 0.08)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        klabels.rasterize_landmarks(torch.zeros(1, 2, 3, device="meta"), 8, 1)
+
+
+def ohem_case(seed, b, p, kind):
+    """(sq, pos, ign, rnd) numpy inputs of ``ohem_select``: 'random' errors
+    with positives and a gray zone; 'tied' (every error 0.25, so the noise
+    alone orders the hard half); 'no_pos' (min_neg applies); 'short' (fewer
+    candidates than the quota); 'levels' (errors on 5 levels: large tie
+    classes at the cutoff)."""
+    rng = np.random.RandomState(seed)
+    sq = rng.uniform(0, 2, (b, p)).astype(np.float32) ** 2
+    pos = rng.rand(b, p) < 0.03
+    ign = (rng.rand(b, p) < 0.05) & ~pos
+    if kind == "tied":
+        sq[:] = 0.25
+    elif kind == "no_pos":
+        pos[:] = False
+    elif kind == "short":
+        pos = rng.rand(b, p) < 0.6
+        ign = ~pos & (rng.rand(b, p) < 0.9)
+    elif kind == "levels":
+        sq = (rng.randint(0, 5, (b, p)) / 4).astype(np.float32)
+    return sq, pos, ign, rng.rand(b, p).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "tied", "no_pos", "short",
+                                  "levels"])
+@pytest.mark.parametrize("bp", [(32, 3600), (3, 256), (2, 513), (1, 16384),
+                                (2, 37)], ids=str)
+def test_ohem_kernel_matches_plain_version(cuda, kind, bp):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in ohem_case(sum(bp), *bp, kind)]
+    before = kohem.launches
+    got = kohem.ohem_select(*args, 1.0, 0.5, 16)
+    torch.cuda.synchronize()
+    assert kohem.launches == before + 1
+    want = kohem.ohem_select_reference(*args, 1.0, 0.5, 16)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    got = kohem.ohem_select(*args, 2.5, 0.3, 7)
+    assert torch.equal(got, kohem.ohem_select_reference(
+        *args, float(np.float32(2.5)), float(np.float32(0.3)), 7))
+
+
+@pytest.mark.gpu
+def test_ohem_wrapper_checks(cuda):
+    sq = torch.zeros(2, 64, device=cuda)
+    flag = torch.zeros(2, 64, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        kohem.ohem_select(sq.double(), flag, flag, sq, 1.0, 0.5, 16)
+    with pytest.raises(TypeError):
+        kohem.ohem_select(sq, flag.int(), flag, sq, 1.0, 0.5, 16)
+    with pytest.raises(ValueError, match="four"):
+        kohem.ohem_select(sq, flag[:, :32], flag, sq, 1.0, 0.5, 16)
+    with pytest.raises(ValueError, match="16384"):
+        big = torch.zeros(1, 16385, device=cuda)
+        kohem.ohem_select(big, big > 0, big > 0, big, 1.0, 0.5, 16)
+    with pytest.raises(ValueError, match="devices"):
+        kohem.ohem_select(sq, flag.cpu(), flag, sq, 1.0, 0.5, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kohem.ohem_select(sq.t().contiguous().t(), flag, flag, sq, 1.0, 0.5,
+                          16)
+
+
+def test_ohem_wrapper_refuses_other_devices():
+    sq = torch.zeros(1, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        kohem.ohem_select(sq, sq > 0, sq > 0, sq, 1.0, 0.5, 16)

@@ -234,7 +234,7 @@ def lm_models():
     jmodel = JaxDenseBox(LM_CFG)
     params = _with_box_sized_loc(jax.jit(jmodel.init)(
         jax.random.key(1), jnp.zeros((1, 96, 128, 3))))
-    port = DenseBox(LM_CFG)
+    port = DenseBox(LM_CFG, device="cpu")
     port.load_state_dict(from_flax(params, LM_CFG))
     with torch.inference_mode():
         refined = port.eval()(torch.from_numpy(IMG))["refined"]
@@ -355,7 +355,7 @@ def test_server_returns_landmarks_matching_jax(lm_models):
     canvas[0, :, 112:] = 0.0
     want = jax_detect(infer, label, canvas)
     server = DetectServer(port, infer, label, canvas_hw=(96, 128),
-                          max_batch=2, batch_window_ms=1.0)
+                          max_batch=2, batch_window_ms=1.0, device="cpu")
     try:
         dets = server.submit(IMG[0, :80, :112])
     finally:
@@ -410,7 +410,7 @@ def test_int8_detect_batch_matches_jax():
     sd = quantize_densebox(from_flax(_with_box_sized_loc(
         jax.jit(JaxDenseBox(Q_CFG).init)(jax.random.key(2), IMG)), Q_CFG),
         Q_CFG, x)
-    model = QuantDenseBox(Q_CFG)
+    model = QuantDenseBox(Q_CFG, device="cpu")
     model.load_state_dict(sd)
     with torch.inference_mode():
         refined = model.eval()(x)["refined"]

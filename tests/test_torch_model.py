@@ -29,7 +29,7 @@ def _flax_params(cfg, shape, seed=1):
 
 
 def _port(cfg, params):
-    model = DenseBox(cfg)
+    model = DenseBox(cfg, device="cpu")
     model.load_state_dict(from_flax(params, cfg))
     return model.eval()
 
@@ -123,11 +123,11 @@ def test_init_params_he_normal():
     assert abs(float(w.std()) - (2.0 / fan_in) ** 0.5) < 0.05 * (2.0 / fan_in) ** 0.5
     assert float(w.abs().max()) <= 2 * (2.0 / fan_in) ** 0.5 / 0.8796 + 1e-6
     assert not sd["conv3_2.bias"].any()
-    model = DenseBox(cfg)
+    model = DenseBox(cfg, device="cpu")
     model.load_state_dict(sd)
 
 
 def test_input_divisibility_raises():
-    model = DenseBox(ModelCfg(width_mult=0.125))
+    model = DenseBox(ModelCfg(width_mult=0.125), device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         model(torch.zeros(1, 60, 64, 3))

@@ -181,7 +181,7 @@ def quant_case(request):
 
 
 def _port_model(cfg, qparams, backend="fused"):
-    model = QuantDenseBox(cfg, backend=backend)
+    model = QuantDenseBox(cfg, backend=backend, device="cpu")
     model.load_state_dict(qparams_from_jax(qparams, cfg))
     return model.eval()
 
@@ -259,7 +259,7 @@ def test_fused_equals_hybrid(quant_case):
 
 def test_qparams_from_jax_checks(quant_case):
     cfg, _, _, qparams = quant_case
-    model = QuantDenseBox(cfg)
+    model = QuantDenseBox(cfg, device="cpu")
     assert not list(model.parameters())
     sd = qparams_from_jax(qparams, cfg)
     np.testing.assert_array_equal(
@@ -275,7 +275,7 @@ def test_qparams_from_jax_checks(quant_case):
     with pytest.raises(ValueError, match="shape"):
         qparams_from_jax(bad, cfg)
     with pytest.raises(ValueError, match="backend"):
-        QuantDenseBox(cfg, backend="xla")
+        QuantDenseBox(cfg, backend="xla", device="cpu")
 
 
 DET_CFG = ModelCfg(stem="s2d4", trunk_depth=2, width_mult=0.125,
@@ -319,7 +319,8 @@ def test_server_round_trip(det_case):
     requests coalesce and each equals a direct detect of its canvas."""
     x, _, model, infer = det_case
     server = DetectServer(model, infer, LABEL, canvas_hw=(64, 96),
-                          max_batch=2, batch_window_ms=50.0)
+                          max_batch=2, batch_window_ms=50.0,
+                          device="cpu")
     results = [None, None]
 
     def hit(i):

@@ -1,11 +1,11 @@
 """The port's scripts (chip_smoke.py, profile_port.py) and the modules the
 port names, checked without a card.
 
-The scripts' device work runs only on a CUDA card. What holds here: no
-script names jax or any module of the JAX package (the port re-exports the
-config and presets it needs), the package names only the JAX package's
-framework-free config and presets, both scripts refuse to run without CUDA,
-and the plain functions of profile_port.py do what its report says.
+The scripts' device work runs only on a CUDA card. What holds here:
+neither a script nor a module of the package names jax or any module of the
+JAX package (the port keeps its own config and presets), importing the port
+loads none of them, both scripts refuse to run without CUDA, and the plain
+functions of profile_port.py do what its report says.
 """
 
 import ast
@@ -25,8 +25,8 @@ if REPO not in sys.path:
 SCRIPTS = ["chip_smoke.py", "profile_port.py"]
 PACKAGE = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, "densebox_tpu_torch", "**", "*.py"), recursive=True))
-# jax-free modules of the JAX package that the port's package may import
-PACKAGE_MAY_IMPORT = {"densebox_tpu.config", "densebox_tpu.presets"}
+# modules of the JAX package that the port's package may import: none
+PACKAGE_MAY_IMPORT = set()
 
 
 def _imported(path):
@@ -45,6 +45,31 @@ def test_names_no_jax_module(path):
            if m.split(".")[0] in ("jax", "flax", "jaxlib")
            or (m.split(".")[0] == "densebox_tpu" and m not in allowed)]
     assert not bad, f"{path} imports {bad}"
+
+
+_IMPORT_SCRIPT = """
+import sys
+import densebox_tpu_torch
+import densebox_tpu_torch.train, densebox_tpu_torch.data
+import densebox_tpu_torch.infer, densebox_tpu_torch.serve
+import densebox_tpu_torch.ops.labels, densebox_tpu_torch.ops.ohem
+import chip_smoke, profile_port
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "flax", "jaxlib", "optax", "densebox_tpu"))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_loads_no_jax():
+    """Importing the port (its train and data subpackages and both scripts
+    included) in a fresh interpreter loads no module of jax, flax, jaxlib,
+    optax or the JAX package."""
+    res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
 
 
 @pytest.mark.parametrize("script", SCRIPTS)
@@ -84,6 +109,23 @@ def test_resize_products_equal_resize_linear():
     ("void (anonymous namespace)::window_kernel<unsigned short>(unsigned "
      "short const*, int const*, int const*, int const*, unsigned short*, "
      "int, int, int, int, int, int, int)", "window_kernel"),
+    ("void (anonymous namespace)::ohem_kernel<8>(float const*, float const*, "
+     "unsigned char const*)", "ohem_kernel"),
+    ("(anonymous namespace)::boxes_kernel(float const*, float*, float4*, "
+     "float*, int, int, float)", "rasterizer_kernel"),
+    ("(anonymous namespace)::landmarks_kernel(float const*, float*, int, int, "
+     "int)", "rasterizer_kernel"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::"
+     "native::(anonymous namespace)::TensorListMetadata<2>", "optimizer"),
+    ("sm90_xmma_wgrad_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc",
+     "conv_backward"),
+    ("sm80_xmma_dgrad_implicit_gemm_indexed_f32f32_f32f32_f32_nhwckrsc_nhwc",
+     "conv_backward"),
+    ("void at::native::(anonymous namespace)::max_pool_backward_nhwc<float, "
+     "float>", "max_pool"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "BinaryFunctor<float, float, float, binary_internal::MulFunctor<float>",
+     "elementwise"),
     ("void at::native::radixSortKVInPlace<2, -1, 32, 32, float, long>",
      "sort"),
     ("void at::native::(anonymous namespace)::max_pool_forward_nhwc"
