@@ -1,37 +1,60 @@
 // Int8 SAME conv (3x3 or 1x1, stride 1) with int32 accumulation and the
-// int8 epilogue, sm_90a.
+// int8 epilogue, on the int8 tensor cores of sm_90a.
 //
 // Replaces densebox_tpu/ops/pallas/qconv.py:_qconv_kernel (behind
-// qconv_int8). Same contract as its plain PyTorch version,
+// qconv_int8): nine MXU dots of a shifted window, int32 accumulation, fused
+// requant. Same contract as its plain PyTorch version,
 // densebox_tpu_torch/ops/kernels/qconv.py:qconv_reference: x (B, H, W, Cin)
-// int8, w (Cout, k, k, Cin) int8 (Cin innermost, so a 4-channel word of x
-// meets the matching word of w), zero padding of k // 2 on every side;
-// the exact int32 sum over taps and channels, then one of three outputs:
-// the accumulator itself (mode int32, the hybrid chain's conv), or the
-// epilogue of epilogue.cuh as f32 or as int8 codes.
+// int8, w (Cout, k, k, Cin) int8 (Cin innermost), zero padding of k // 2 on
+// every side; the exact int32 sum over taps and channels, then one of three
+// outputs: the accumulator itself (mode int32, the hybrid chain's conv), or
+// the epilogue of epilogue.cuh as f32 or as int8 codes. Integer sums are
+// exact in any order, so every variant below gives the same codes.
 //
-// What bounds it on the card: int8 multiply-adds. At DenseBox's widths a
-// conv does 9 * Cin multiply-adds per output value and moves 2 bytes per
-// value (int8 in, int8 out), far above the card's ratio of operations to
-// bytes, so arithmetic bounds it. This first kernel does them on the CUDA
-// cores with __dp4a (four int8 products and an int32 add per instruction);
-// the int8 tensor cores (mma.sync / wgmma) are a later step.
+// What bounds it on the card: at the narrow widths this repository serves
+// (16 to 128 channels) a layer moves about as many bytes (int8 in, int8
+// out, each once) as the tensor cores need time for its operations, so the
+// bound is bytes as often as operations; at the paper's widths (256 to 768
+// channels) it is operations. Either way the work must go to the tensor
+// cores and nothing may be staged twice.
 //
-// Design, one block of 256 threads per (image, 8x16 output tile, block of
-// COB output channels):
-//   * Cin is walked in chunks of 32 channels (8 words). For each chunk the
-//     block stages the input tile with its k // 2 halo in shared memory,
-//     zero-filled outside the image (SAME padding without a padded copy of
-//     x) and past Cin (the channel tail when Cin is not a multiple of 4),
-//     and the matching weights as [tap][word][channel].
-//   * Each thread owns 4 pixels of one tile row (columns c, c+4, c+8, c+12)
-//     and COB/8 channels (cg, cg+8, ...), so that in a warp the 8 channel
-//     groups read 8 neighbouring weight words and the 4 pixel groups read 4
-//     input words 8 banks apart: no bank conflicts. Per word it does
-//     4 * COB/8 __dp4a from 4 + COB/8 shared-memory loads.
-//   * The epilogue runs on the int32 registers and writes NHWC directly.
-// COB is 16, 32 or 64 by Cout, so that narrow layers (Cout 1, 4, 16) do not
-// compute 64 channels. One C call is one launch; it does not synchronise.
+// Design of the tensor-core variant (Cin a multiple of 16), an implicit GEMM
+// with M = the 8x16 output pixels of a tile, N = a block of NBLK output
+// channels, K = taps x Cin:
+//   * mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 (no .satfinite: the
+//     int32 sum never overflows at 9 * 768 * 127^2). Both operands are
+//     K-major in memory already, which is what row.col wants. An m16 tile is
+//     one row of 16 pixels; a warp owns MT tile rows and NT 8-channel tiles.
+//   * The halo tile is the im2col. A stage holds the (8+2P) x (16+2P) input
+//     pixels of a tile for one chunk of KC channels; the A fragment of tap
+//     (dy, dx) is that tile read at a shifted pixel address, one
+//     ldmatrix.x4 with a 16-byte row pointer per lane. Pixels (and the
+//     weights' rows) lie an odd number of 16-byte units apart, so the eight
+//     rows of an ldmatrix fall into eight different bank groups.
+//   * Staging is 16-byte cp.async.cg with the source size set to 0 outside
+//     the image (hardware zero fill = SAME padding without a padded copy)
+//     and past Cout, through a ring of two to four stages (as many as cost
+//     the SM no resident block): the next tiles (or chunks) load while this
+//     one multiplies.
+//   * Weights stay put: where the block's weights for all taps and all of
+//     Cin fit beside two input stages (every layer of the narrow models),
+//     they are loaded once and the persistent block walks many tiles
+//     (grid = what the card holds at once). Where they do not fit (the
+//     paper's conv3_x and conv4_x), weights stream with the input in chunks
+//     of KC = 64 or 32 channels through the same ring. A narrow layer's
+//     tile is little work, so the walk costs no division: two cursors (the
+//     tile being loaded, the tile being multiplied) step by the grid's
+//     size in (image, tile row, tile column) with carries.
+//   * The epilogue runs on the accumulator registers (epilogue.cuh), goes
+//     through a per-warp slice of shared memory one m16 tile at a time, and
+//     leaves as 16-byte stores along Cout. Where a pixel's Cout values are
+//     not whole 16-byte units (Cout 1, 5, ...) it stores scalars, masked.
+// Cin that is not a multiple of 16 (the paper's conv1_1, Cin 3; the refine
+// branch's first conv, Cin 5 or 6) cannot take 16-byte copies and is a
+// fraction of a per cent of any model's work: it keeps the __dp4a kernel on
+// the CUDA cores. The choice is a rule of (Cin, Cout) alone, mirrored by
+// ops/kernels/qconv.py:kernel_variant and reported back at every launch.
+// One C call is one launch; it does not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,9 +63,530 @@
 
 namespace {
 
+using densebox::kModeF32;
+using densebox::kModeInt32;
+using densebox::kModeInt8;
+
 constexpr int kThreads = 256;
-constexpr int kTH = 8;           // output tile rows (one per warp)
-constexpr int kTW = 16;          // output tile columns
+constexpr int kWarps = kThreads / 32;
+constexpr int kTH = 8;           // output tile rows
+constexpr int kTW = 16;          // output tile columns: one m16 tile a row
+constexpr int kSmemMax = 232448; // shared memory a block may use on sm_90
+constexpr int kMaxDevices = 64;
+
+// ---------------------------------------------------------------------------
+// The tensor-core variant.
+
+struct Plan {
+  int batch, h, wd, cin, cout;
+  int tiles_w, tiles_h, tiles_per_img, n_tiles;
+  int step_b, step_ty, step_tx;  // the grid's x size as (images, rows, columns)
+  int kc, n_chunks;      // channels per input chunk, chunks per tile
+  int ushift;            // log2 of a pixel's 16-byte units, rounded up
+  int n_stages;          // the ring's depth: 2, 3 or 4
+  int pstride, wstride;  // bytes between pixels / between weight rows
+  int resident;          // weights loaded once, or a chunk with every stage
+  int w_bytes;           // the resident weights' area (0 when streamed)
+  int in_bytes;          // the input part of a stage
+  int stage_bytes;       // in_bytes plus, when streamed, the weight chunk
+  int relu, vec;         // vec: a pixel's outputs are whole 16-byte units
+};
+
+// Bytes of a row of `units` 16-byte units, padded to an odd count of units.
+__host__ __device__ constexpr int odd_row(int units) { return (units | 1) * 16; }
+
+// How the 8 warps share a tile of 8 rows x NBLK channels: WARPS_M x WARPS_N
+// warps of MT rows (m16 tiles) x NT n8 tiles each. Many rows per warp where
+// the block is wide, since a warp reads each input row once for all three
+// taps above it and each weight fragment once for all its rows.
+template <int NBLK>
+struct Shape {
+  static constexpr int WARPS_N =
+      NBLK >= 128 ? 8 : NBLK >= 64 ? 4 : NBLK >= 32 ? 2 : 1;
+  static constexpr int WARPS_M = kWarps / WARPS_N;
+  static constexpr int WN = NBLK / WARPS_N;   // channels per warp: 16 or 8
+  static constexpr int NT = WN / 8;           // n8 tiles per warp
+  static constexpr int MT = kTH / WARPS_M;    // m16 tiles (tile rows) per warp
+  // blocks per SM the registers must leave room for
+  static constexpr int MIN_BLOCKS = NBLK >= 128 ? 2 : 3;
+};
+
+// The epilogue's staging: m16 tiles per pass and bytes of one staged row of
+// a warp (WN values, padded against bank conflicts).
+__host__ __device__ constexpr int out_tiles(int mt, int es) {
+  return es == 1 && mt >= 2 ? 2 : 1;
+}
+__host__ __device__ constexpr int out_row(int wn, int es) {
+  return wn * es + (es == 1 ? 16 : 32);
+}
+template <int NBLK>
+constexpr int out_bytes(int es) {
+  return kWarps * 16 * out_tiles(Shape<NBLK>::MT, es) *
+         out_row(Shape<NBLK>::WN, es);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; `bytes` = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(__cvta_generic_to_global(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, int& r0, int& r1,
+                                            int& r2, int& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t addr, int& r0, int& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 out, wrapping
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
+                                       const int (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The input halo tile of (image b, tile origin y0, x0) for channels
+// [c0, c0 + kcb): pixel-major, `pstride` bytes a pixel, zeros off the image.
+// A thread keeps one 16-byte unit of the pixels tid >> ushift, + step, ...
+template <int KS>
+__device__ __forceinline__ void load_input(uint8_t* dst, const int8_t* x,
+                                           const Plan& p, int b, int y0,
+                                           int x0, int c0, int kcb) {
+  constexpr int P = KS / 2, IH = kTH + 2 * P, IW = kTW + 2 * P;
+  const int unit = threadIdx.x & ((1 << p.ushift) - 1);
+  if (unit * 16 >= kcb) return;
+  const uint32_t d0 = smem_u32(dst) + unit * 16;
+  const int8_t* xb = x + (size_t)b * p.h * p.wd * p.cin + c0 + unit * 16;
+  for (int pix = threadIdx.x >> p.ushift; pix < IH * IW;
+       pix += kThreads >> p.ushift) {
+    const int iy = pix / IW, ix = pix - iy * IW;
+    const int gy = y0 + iy - P, gx = x0 + ix - P;
+    const bool ok = gy >= 0 && gy < p.h && gx >= 0 && gx < p.wd;
+    const int8_t* src = ok ? xb + ((size_t)gy * p.wd + gx) * p.cin : x;
+    cp_async16(d0 + pix * p.pstride, src, ok ? 16 : 0);
+  }
+}
+
+// The weights of output channels [n0, n0 + NBLK) for all taps and channels
+// [c0, c0 + kcb): one row of `wstride` bytes per output channel, laid out
+// [tap][channel]; zeros past Cout.
+template <int KS, int NBLK>
+__device__ __forceinline__ void load_weights(uint8_t* dst, const int8_t* w,
+                                             const Plan& p, int n0, int c0,
+                                             int kcb) {
+  constexpr int TAPS = KS * KS;
+  const int u = kcb / 16, row = TAPS * u;
+  const uint32_t d0 = smem_u32(dst);
+  // all of Cin at once: a channel's row is one run of the source
+  const bool whole = kcb == p.cin;
+  // unit r of row n, for the units threadIdx.x, + kThreads, ...: stepped
+  // with a carry, so that the loop divides only where chunks split a row
+  int n = threadIdx.x / row, r = threadIdx.x - n * row;
+  const int dn = kThreads / row, dr = kThreads - dn * row;
+  while (n < NBLK) {
+    const bool ok = n0 + n < p.cout;
+    const int off = whole ? r * 16 : (r / u) * p.cin + c0 + (r % u) * 16;
+    const int8_t* src = ok ? w + (size_t)(n0 + n) * TAPS * p.cin + off : w;
+    cp_async16(d0 + n * p.wstride + r * 16, src, ok ? 16 : 0);
+    n += dn, r += dr;
+    if (r >= row) r -= row, ++n;
+  }
+}
+
+template <int MODE>
+struct OutType;
+template <>
+struct OutType<kModeInt32> { using T = int; };
+template <>
+struct OutType<kModeF32> { using T = float; };
+template <>
+struct OutType<kModeInt8> { using T = int8_t; };
+
+// One channel's epilogue constants, and one accumulator through the
+// epilogue as the bits of the output type (int8 codes in the low byte).
+struct Channel { float scale, bias, out_scale; };
+
+template <int MODE>
+__device__ __forceinline__ int finish(int acc, const Channel& c, bool relu) {
+  if constexpr (MODE == kModeInt32) {
+    return acc;
+  } else {
+    const float y = densebox::dequant(acc, c.scale, c.bias, relu);
+    if constexpr (MODE == kModeF32)
+      return __float_as_int(y);
+    else
+      return (int)(uint8_t)densebox::requant(y, c.out_scale);
+  }
+}
+
+template <int KS, int NBLK, int MODE>
+__global__ void __launch_bounds__(kThreads, Shape<NBLK>::MIN_BLOCKS)
+qconv_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ out_scale, void* __restrict__ out,
+                 const Plan p) {
+  using S = Shape<NBLK>;
+  using T = typename OutType<MODE>::T;
+  constexpr int P = KS / 2, IW = kTW + 2 * P;
+  constexpr int MT = S::MT, NT = S::NT, WN = S::WN;
+  constexpr int ES = sizeof(T);
+  constexpr int OROW = out_row(WN, ES), OTILES = out_tiles(MT, ES);
+  extern __shared__ __align__(128) uint8_t smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
+  const int g = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.y * NBLK;
+
+  uint8_t* stages = smem + p.w_bytes;
+  uint8_t* ostage =
+      stages + p.n_stages * p.stage_bytes + warp * (16 * OTILES * OROW);
+
+  // the epilogue constants of this thread's 2 * NT channels, in registers
+  // for all the tiles the block walks
+  Channel ch[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + wn * WN + nt * 8 + tig * 2 + j;
+      const bool ok = MODE != kModeInt32 && n < p.cout;
+      ch[nt][j].scale = ok ? scale[n] : 0.0f;
+      ch[nt][j].bias = ok ? bias[n] : 0.0f;
+      ch[nt][j].out_scale = ok && MODE == kModeInt8 ? out_scale[n] : 0.0f;
+    }
+
+  const int my_tiles =
+      (p.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int n_items = my_tiles * p.n_chunks;  // (tile, chunk) pairs, >= 1
+
+  // Where a walk over the block's items stands: the tile blockIdx.x + i *
+  // gridDim.x as (image, tile row, tile column), the chunk of Cin and the
+  // stage of the ring. `next` steps without a division.
+  struct Cursor { int b, ty, tx, chunk, stage; };
+  auto next = [&](Cursor& c) {
+    c.stage = c.stage + 1 == p.n_stages ? 0 : c.stage + 1;
+    if (++c.chunk < p.n_chunks) return;
+    c.chunk = 0;
+    c.b += p.step_b, c.ty += p.step_ty, c.tx += p.step_tx;
+    if (c.tx >= p.tiles_w) c.tx -= p.tiles_w, ++c.ty;
+    if (c.ty >= p.tiles_h) c.ty -= p.tiles_h, ++c.b;
+  };
+  Cursor cur{};
+  {
+    const int t = blockIdx.x;
+    cur.b = t / p.tiles_per_img;
+    cur.ty = (t - cur.b * p.tiles_per_img) / p.tiles_w;
+    cur.tx = t - cur.b * p.tiles_per_img - cur.ty * p.tiles_w;
+  }
+  Cursor ld = cur;  // runs n_stages - 1 items ahead of cur
+  int fetched = 0;
+  // one commit group per call, empty past the last item, so that group i
+  // always carries item i
+  auto prefetch = [&]() {
+    if (fetched < n_items) {
+      const int c0 = ld.chunk * p.kc;
+      const int kcb = min(p.kc, p.cin - c0);
+      uint8_t* st = stages + ld.stage * p.stage_bytes;
+      load_input<KS>(st, x, p, ld.b, ld.ty * kTH, ld.tx * kTW, c0, kcb);
+      if (!p.resident)
+        load_weights<KS, NBLK>(st + p.in_bytes, w, p, n0, c0, kcb);
+      next(ld);
+    }
+    ++fetched;
+    cp_async_commit();
+  };
+
+  if (p.resident) load_weights<KS, NBLK>(smem, w, p, n0, 0, p.cin);
+  for (int i = 0; i < p.n_stages - 1; ++i) prefetch();
+
+  // per-lane row pointers of the ldmatrix fragments, relative to a stage:
+  // A: lanes 0-15 the 16 pixels of a row at k 0-15, lanes 16-31 at k 16-31;
+  // B: 8 channels at k 0-15, the same at k 16-31, then the next 8 channels
+  const int a_lane = (wm * MT * IW + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                         p.pstride + (lane >> 4) * 16;
+  const int b_row = NT >= 2 ? (lane & 7) + ((lane >> 4) & 1) * 8 : (lane & 7);
+  const int b_lane = (wn * WN + b_row) * p.wstride + ((lane >> 3) & 1) * 16;
+
+  int acc[MT][NT][4];
+  for (int item = 0; item < n_items; ++item) {
+    if (p.n_stages == 2) cp_async_wait<0>();
+    else if (p.n_stages == 3) cp_async_wait<1>();
+    else cp_async_wait<2>();
+    // item's stage has landed for every thread, and every warp is done
+    // with the stage that the next load overwrites
+    __syncthreads();
+    prefetch();
+
+    const int chunk = cur.chunk;
+    if (chunk == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+    }
+    const int kcb = min(p.kc, p.cin - chunk * p.kc);
+    const int ksteps = (kcb + 31) / 32;
+    const bool tail = kcb % 32 != 0;  // the last k32 step holds 16 channels
+    const uint8_t* st = stages + cur.stage * p.stage_bytes;
+    const uint32_t a_base = smem_u32(st) + a_lane;
+    // a weight row is [tap][Cin] when resident, [tap][this chunk] otherwise
+    const int w_tap = p.resident ? p.cin : kcb;
+    const uint32_t b_base = smem_u32(p.resident ? smem : st + p.in_bytes) +
+                            b_lane + (p.resident ? chunk * p.kc : 0);
+#pragma unroll
+    for (int dx = 0; dx < KS; ++dx) {
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const bool half = tail && ks == ksteps - 1;
+        int b[KS][NT][2];
+#pragma unroll
+        for (int dy = 0; dy < KS; ++dy) {
+          const uint32_t addr = b_base + (dy * KS + dx) * w_tap + ks * 32;
+          if constexpr (NT >= 2)
+            ldmatrix_x4(addr, b[dy][0][0], b[dy][0][1], b[dy][1][0],
+                        b[dy][1][1]);
+          else
+            ldmatrix_x2(addr, b[dy][0][0], b[dy][0][1]);
+        }
+        // input row r of the warp's halo feeds output row r - dy at tap dy
+#pragma unroll
+        for (int r = 0; r < MT + KS - 1; ++r) {
+          int a[4];
+          ldmatrix_x4(a_base + (r * IW + dx) * p.pstride + ks * 32, a[0],
+                      a[1], a[2], a[3]);
+          if (half) a[2] = a[3] = 0;
+#pragma unroll
+          for (int dy = 0; dy < KS; ++dy) {
+            const int mt = r - dy;
+            if (mt < 0 || mt >= MT) continue;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], a, b[dy][nt]);
+          }
+        }
+      }
+    }
+
+    if (chunk == p.n_chunks - 1) {
+      const int x0 = cur.tx * kTW;
+      T* ob = static_cast<T*>(out) + (size_t)cur.b * p.h * p.wd * p.cout;
+      const int oy0 = cur.ty * kTH + wm * MT;
+      if (WN * ES >= 16 && p.vec) {
+        // registers -> the warp's slice (16 * OTILES pixels x WN values) ->
+        // 16-byte stores, neighbouring lanes on neighbouring units
+#pragma unroll
+        for (int mt0 = 0; mt0 < MT; mt0 += OTILES) {
+#pragma unroll
+          for (int mp = 0; mp < OTILES; ++mp)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int v0 = finish<MODE>(acc[mt0 + mp][nt][2 * hf],
+                                            ch[nt][0], p.relu);
+                const int v1 = finish<MODE>(acc[mt0 + mp][nt][2 * hf + 1],
+                                            ch[nt][1], p.relu);
+                uint8_t* dst = ostage + (mp * 16 + g + 8 * hf) * OROW +
+                               (nt * 8 + tig * 2) * ES;
+                if constexpr (ES == 1)
+                  *reinterpret_cast<uint16_t*>(dst) =
+                      (uint16_t)(v0 | (v1 << 8));
+                else
+                  *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+              }
+          __syncwarp();
+          constexpr int UPR = WN * ES / 16 > 0 ? WN * ES / 16 : 1;
+          for (int i = lane; i < 16 * OTILES * UPR; i += 32) {
+            const int row = i / UPR, unit = i % UPR;
+            const int oy = oy0 + mt0 + row / 16, ox = x0 + row % 16;
+            const int n = n0 + wn * WN + unit * (16 / ES);
+            if (oy < p.h && ox < p.wd && n < p.cout)
+              *reinterpret_cast<int4*>(
+                  ob + ((size_t)oy * p.wd + ox) * p.cout + n) =
+                  *reinterpret_cast<const int4*>(ostage + row * OROW +
+                                                 unit * 16);
+          }
+          __syncwarp();
+        }
+      } else {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int oy = oy0 + mt, ox = x0 + g + 8 * (i >> 1);
+              const int n = n0 + wn * WN + nt * 8 + tig * 2 + (i & 1);
+              if (oy >= p.h || ox >= p.wd || n >= p.cout) continue;
+              const int v = finish<MODE>(acc[mt][nt][i], ch[nt][i & 1], p.relu);
+              T* o = ob + ((size_t)oy * p.wd + ox) * p.cout + n;
+              if constexpr (MODE == kModeF32)
+                *o = __int_as_float(v);
+              else
+                *o = (T)v;
+            }
+      }
+    }
+    next(cur);
+  }
+}
+
+// Blocks of `bytes` of dynamic shared memory that an SM holds (228 KB, 1 KB
+// reserved per block), at most 3.
+int blocks_fit(int bytes) {
+  if (bytes > kSmemMax) return 0;
+  const int n = 233472 / (bytes + 1024);
+  return n > 3 ? 3 : n;
+}
+
+// How a layer is cut. Weights are resident where they fit beside two input
+// stages; the input then comes whole (all of Cin a stage) where two blocks
+// still fit an SM, else in chunks of 64 channels. Where the weights do not
+// fit they stream with the input, in chunks of 64 channels where two blocks
+// fit, else 32. The ring is as deep (up to 4 stages) as costs no block.
+template <int KS, int NBLK>
+Plan make_plan(int batch, int h, int wd, int cin, int cout, int es, int relu) {
+  constexpr int P = KS / 2, IH = kTH + 2 * P, IW = kTW + 2 * P;
+  constexpr int TAPS = KS * KS;
+  const int fixed = out_bytes<NBLK>(es);
+  auto in_bytes = [&](int kc) { return IH * IW * odd_row(kc / 16) + 16; };
+  auto w_bytes = [&](int kc) { return NBLK * odd_row(TAPS * kc / 16) + 16; };
+  const int kc64 = cin < 64 ? cin : 64;
+  Plan p{};
+  p.batch = batch, p.h = h, p.wd = wd, p.cin = cin, p.cout = cout;
+  p.tiles_w = (wd + kTW - 1) / kTW;
+  p.tiles_h = (h + kTH - 1) / kTH;
+  p.tiles_per_img = p.tiles_w * p.tiles_h;
+  p.n_tiles = batch * p.tiles_per_img;
+  p.resident = w_bytes(cin) + 2 * in_bytes(kc64) + fixed <= kSmemMax;
+  if (p.resident)
+    p.kc = blocks_fit(w_bytes(cin) + 2 * in_bytes(cin) + fixed) >= 2 ? cin
+                                                                     : kc64;
+  else
+    p.kc = blocks_fit(2 * (in_bytes(64) + w_bytes(64)) + fixed) >= 2 ? 64 : 32;
+  p.n_chunks = (cin + p.kc - 1) / p.kc;
+  const int units = p.kc / 16;
+  while ((1 << p.ushift) < units) ++p.ushift;
+  p.pstride = odd_row(units);
+  p.wstride = odd_row(TAPS * (p.resident ? cin : p.kc) / 16);
+  p.w_bytes = p.resident ? w_bytes(cin) : 0;
+  p.in_bytes = in_bytes(p.kc);
+  p.stage_bytes = p.in_bytes + (p.resident ? 0 : w_bytes(p.kc));
+  auto total = [&](int s) { return p.w_bytes + s * p.stage_bytes + fixed; };
+  p.n_stages = 2;
+  while (p.n_stages < 4 &&
+         blocks_fit(total(p.n_stages + 1)) == blocks_fit(total(2)))
+    ++p.n_stages;
+  p.relu = relu;
+  p.vec = (cout * es) % 16 == 0;
+  return p;
+}
+
+int sm_count(int dev) {
+  static int sms[kMaxDevices];
+  if (!sms[dev] && cudaDeviceGetAttribute(&sms[dev],
+                                          cudaDevAttrMultiProcessorCount,
+                                          dev) != cudaSuccess)
+    return 0;
+  return sms[dev];
+}
+
+template <int KS, int NBLK, int MODE>
+int launch_mma(const int8_t* x, const int8_t* w, const float* scale,
+               const float* bias, const float* out_scale, void* out,
+               int batch, int h, int wd, int cin, int cout, int relu,
+               cudaStream_t s, int* info) {
+  constexpr int ES = sizeof(typename OutType<MODE>::T);
+  Plan p = make_plan<KS, NBLK>(batch, h, wd, cin, cout, ES, relu);
+  info[2] = p.kc, info[3] = p.resident;
+  const int smem = p.w_bytes + p.n_stages * p.stage_bytes + out_bytes<NBLK>(ES);
+  auto kern = qconv_mma_kernel<KS, NBLK, MODE>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static bool attr_set[kMaxDevices];  // per instance and device
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = true;
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count(dev);
+  if (per_sm < 1 || sms < 1) return (int)cudaErrorLaunchOutOfResources;
+  // persistent blocks: as many as the card holds at once, each walking the
+  // tiles blockIdx.x, blockIdx.x + gridDim.x, ... of its channel block
+  const int n_blocks = (cout + NBLK - 1) / NBLK;
+  int gx = per_sm * sms / n_blocks;
+  gx = gx < 1 ? 1 : gx > p.n_tiles ? p.n_tiles : gx;
+  info[4] = gx, info[5] = smem, info[6] = p.n_stages;
+  p.step_b = gx / p.tiles_per_img;
+  p.step_ty = gx % p.tiles_per_img / p.tiles_w;
+  p.step_tx = gx % p.tiles_w;
+  kern<<<dim3(gx, n_blocks), kThreads, smem, s>>>(x, w, scale, bias, out_scale,
+                                                  out, p);
+  return (int)cudaGetLastError();
+}
+
+template <int KS, int NBLK>
+int launch_mma_mode(int mode, const int8_t* x, const int8_t* w,
+                    const float* scale, const float* bias,
+                    const float* out_scale, void* out, int batch, int h,
+                    int wd, int cin, int cout, int relu, cudaStream_t s,
+                    int* info) {
+  if (mode == kModeInt8)
+    return launch_mma<KS, NBLK, kModeInt8>(x, w, scale, bias, out_scale, out,
+                                           batch, h, wd, cin, cout, relu, s,
+                                           info);
+  if (mode == kModeF32)
+    return launch_mma<KS, NBLK, kModeF32>(x, w, scale, bias, out_scale, out,
+                                          batch, h, wd, cin, cout, relu, s,
+                                          info);
+  return launch_mma<KS, NBLK, kModeInt32>(x, w, scale, bias, out_scale, out,
+                                          batch, h, wd, cin, cout, relu, s,
+                                          info);
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core variant, for Cin that is not a multiple of 16. One block of
+// 256 threads per (image, 8x16 output tile, block of COB output channels);
+// Cin is walked in chunks of 32 channels staged as 4-channel words (zeros
+// off the image and past Cin); each thread owns 4 pixels of a tile row and
+// COB/8 channels and multiplies with __dp4a.
+
 constexpr int kPx = 4;           // pixels per thread
 constexpr int kCoGroups = 8;     // channel groups (threads per pixel group)
 constexpr int kChunkWords = 8;   // Cin chunk: 8 words = 32 channels
@@ -61,11 +605,12 @@ __device__ __forceinline__ int load_word(const int8_t* __restrict__ p, int c,
 
 template <int KS, int COB>
 __global__ void __launch_bounds__(kThreads)
-qconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-             const float* __restrict__ scale, const float* __restrict__ bias,
-             const float* __restrict__ out_scale, void* __restrict__ out,
-             int h, int wd, int cin, int cout, int tiles_w, bool aligned,
-             int relu, int mode) {
+qconv_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ out_scale, void* __restrict__ out,
+                  int h, int wd, int cin, int cout, int tiles_w, bool aligned,
+                  int relu, int mode) {
   constexpr int P = KS / 2;
   constexpr int IH = kTH + 2 * P, IW = kTW + 2 * P;
   constexpr int CO_T = COB / kCoGroups;
@@ -146,12 +691,12 @@ qconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const int co = co0 + cg + kCoGroups * j;
       if (co >= cout) continue;
       const size_t o = pix * cout + co;
-      if (mode == densebox::kModeInt32) {
+      if (mode == kModeInt32) {
         static_cast<int*>(out)[o] = acc[i][j];
         continue;
       }
       const float y = densebox::dequant(acc[i][j], scale[co], bias[co], relu);
-      if (mode == densebox::kModeInt8)
+      if (mode == kModeInt8)
         static_cast<int8_t*>(out)[o] = densebox::requant(y, out_scale[co]);
       else
         static_cast<float*>(out)[o] = y;
@@ -160,32 +705,64 @@ qconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <int KS, int COB>
-void launch(const int8_t* x, const int8_t* w, const float* scale,
-            const float* bias, const float* out_scale, void* out, int batch,
-            int h, int wd, int cin, int cout, bool aligned, int relu,
-            int mode, cudaStream_t s) {
+int launch_dp4a(const int8_t* x, const int8_t* w, const float* scale,
+                const float* bias, const float* out_scale, void* out,
+                int batch, int h, int wd, int cin, int cout, int relu,
+                int mode, cudaStream_t s) {
+  // word loads need every 4-channel group 4-byte aligned
+  const bool aligned = cin % 4 == 0 && (uintptr_t)x % 4 == 0 &&
+                       (uintptr_t)w % 4 == 0;
   const int tiles_w = (wd + kTW - 1) / kTW;
   const int tiles_h = (h + kTH - 1) / kTH;
+  if (batch > 65535 || (cout + COB - 1) / COB > 65535)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(tiles_h * tiles_w, (cout + COB - 1) / COB, batch);
-  qconv_kernel<KS, COB><<<grid, kThreads, 0, s>>>(
+  qconv_dp4a_kernel<KS, COB><<<grid, kThreads, 0, s>>>(
       x, w, scale, bias, out_scale, out, h, wd, cin, cout, tiles_w, aligned,
       relu, mode);
+  return (int)cudaGetLastError();
+}
+
+// The rule of dispatch (ops/kernels/qconv.py:kernel_variant mirrors it):
+// the tensor cores whenever Cin is a multiple of 16, with the smallest
+// channel block of 8, 16, 32, 64, 128 that holds Cout (128 above that);
+// else the CUDA cores with a block of 16, 32 or 64.
+bool use_mma(int cin) { return cin % 16 == 0; }
+
+int channel_block(int cin, int cout) {
+  if (use_mma(cin))
+    return cout <= 8 ? 8 : cout <= 16 ? 16 : cout <= 32 ? 32
+         : cout <= 64 ? 64 : 128;
+  return cout <= 16 ? 16 : cout <= 32 ? 32 : 64;
 }
 
 template <int KS>
-void dispatch(const int8_t* x, const int8_t* w, const float* scale,
-              const float* bias, const float* out_scale, void* out,
-              int batch, int h, int wd, int cin, int cout, bool aligned,
-              int relu, int mode, cudaStream_t s) {
-  if (cout <= 16)
-    launch<KS, 16>(x, w, scale, bias, out_scale, out, batch, h, wd, cin, cout,
-                   aligned, relu, mode, s);
-  else if (cout <= 32)
-    launch<KS, 32>(x, w, scale, bias, out_scale, out, batch, h, wd, cin, cout,
-                   aligned, relu, mode, s);
-  else
-    launch<KS, 64>(x, w, scale, bias, out_scale, out, batch, h, wd, cin, cout,
-                   aligned, relu, mode, s);
+int dispatch(const int8_t* x, const int8_t* w, const float* scale,
+             const float* bias, const float* out_scale, void* out, int batch,
+             int h, int wd, int cin, int cout, int relu, int mode,
+             cudaStream_t s, int* info) {
+#define DENSEBOX_MMA(NBLK)                                                   \
+  return launch_mma_mode<KS, NBLK>(mode, x, w, scale, bias, out_scale, out,  \
+                                   batch, h, wd, cin, cout, relu, s, info)
+#define DENSEBOX_DP4A(COB)                                                   \
+  return launch_dp4a<KS, COB>(x, w, scale, bias, out_scale, out, batch, h,   \
+                              wd, cin, cout, relu, mode, s)
+  if (info[0]) {
+    switch (info[1]) {
+      case 8: DENSEBOX_MMA(8);
+      case 16: DENSEBOX_MMA(16);
+      case 32: DENSEBOX_MMA(32);
+      case 64: DENSEBOX_MMA(64);
+      default: DENSEBOX_MMA(128);
+    }
+  }
+  switch (info[1]) {
+    case 16: DENSEBOX_DP4A(16);
+    case 32: DENSEBOX_DP4A(32);
+    default: DENSEBOX_DP4A(64);
+  }
+#undef DENSEBOX_MMA
+#undef DENSEBOX_DP4A
 }
 
 }  // namespace
@@ -193,33 +770,39 @@ void dispatch(const int8_t* x, const int8_t* w, const float* scale,
 // x (B, H, W, Cin) int8, w (Cout, k, k, Cin) int8, k in {1, 3}; scale and
 // bias (Cout,) f32 for modes f32 and int8, out_scale (Cout,) f32 for mode
 // int8; out (B, H, W, Cout) int32 (mode 0), f32 (mode 1) or int8 (mode 2).
-// All contiguous on the current device. Launches on `stream`, does not
-// synchronise; returns the CUDA error code (0 = launched).
+// All contiguous on the current device; with Cin a multiple of 16, x, w and
+// out 16-byte aligned. Launches on `stream`, does not synchronise; returns
+// the CUDA error code (0 = launched). `info` (7 ints) receives what was
+// chosen: 1 for the tensor-core variant or 0 for the CUDA-core one, the
+// channel block, and for the tensor-core variant the channels per chunk,
+// whether the weights are resident, the grid's x size, the dynamic shared
+// memory in bytes and the ring's depth.
 extern "C" int densebox_qconv(const void* x, const void* w, const void* scale,
                               const void* bias, const void* out_scale,
                               void* out, int batch, int h, int wd, int cin,
                               int cout, int ksize, int relu, int mode,
-                              void* stream) {
-  if (batch < 1 || batch > 65535 || h < 1 || wd < 1 || cin < 1 || cout < 1 ||
-      (cout + 15) / 16 > 65535 || (ksize != 1 && ksize != 3) ||
-      (long long)((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW) > 0x7fffffff ||
-      mode < densebox::kModeInt32 || mode > densebox::kModeInt8 ||
-      (mode != densebox::kModeInt32 && (scale == nullptr || bias == nullptr)) ||
-      (mode == densebox::kModeInt8 && out_scale == nullptr))
+                              void* stream, int* info) {
+  if (info == nullptr || batch < 1 || h < 1 || wd < 1 || cin < 1 ||
+      cout < 1 || (cout + 7) / 8 > 65535 || (ksize != 1 && ksize != 3) ||
+      (long long)batch * ((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW) >
+          0x7fffffff ||
+      mode < kModeInt32 || mode > kModeInt8 ||
+      (mode != kModeInt32 && (scale == nullptr || bias == nullptr)) ||
+      (mode == kModeInt8 && out_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  // word loads need every 4-channel group 4-byte aligned
-  const bool aligned = cin % 4 == 0 && (uintptr_t)x % 4 == 0 &&
-                       (uintptr_t)w % 4 == 0;
+  for (int i = 0; i < 7; ++i) info[i] = 0;
+  info[0] = use_mma(cin);
+  info[1] = channel_block(cin, cout);
+  if (info[0] && ((uintptr_t)x % 16 || (uintptr_t)w % 16 || (uintptr_t)out % 16))
+    return (int)cudaErrorMisalignedAddress;
   const auto* xs = (const int8_t*)x;
   const auto* ws = (const int8_t*)w;
   cudaStream_t s = (cudaStream_t)stream;
   if (ksize == 3)
-    dispatch<3>(xs, ws, (const float*)scale, (const float*)bias,
-                (const float*)out_scale, out, batch, h, wd, cin, cout,
-                aligned, relu, mode, s);
-  else
-    dispatch<1>(xs, ws, (const float*)scale, (const float*)bias,
-                (const float*)out_scale, out, batch, h, wd, cin, cout,
-                aligned, relu, mode, s);
-  return (int)cudaGetLastError();
+    return dispatch<3>(xs, ws, (const float*)scale, (const float*)bias,
+                       (const float*)out_scale, out, batch, h, wd, cin, cout,
+                       relu, mode, s, info);
+  return dispatch<1>(xs, ws, (const float*)scale, (const float*)bias,
+                     (const float*)out_scale, out, batch, h, wd, cin, cout,
+                     relu, mode, s, info);
 }

@@ -36,7 +36,8 @@ from densebox_tpu_torch.models.densebox import (DenseBox, check_divisible,
                                                 space_to_depth, trunk_plan,
                                                 upsample2x_align_corners)
 from densebox_tpu_torch.ops.kernels.qconv import qconv_int8
-from densebox_tpu_torch.ops.kernels.requant import requant_epilogue
+from densebox_tpu_torch.ops.kernels.requant import (channel_vector,
+                                                    requant_epilogue)
 
 GLUE = torch.bfloat16   # dtype of the float tensors between int8 stages
 BACKENDS = ("fused", "hybrid")
@@ -188,6 +189,12 @@ class QuantDenseBox(nn.Module):
     qparams tree with '.' for '/' (``det.det_conv1.w_q``, ``f4_scale``).
     All state is buffers; the module has no parameters. Built on the card
     unless ``device`` names another device.
+
+    The epilogue vectors of each conv (``in_scale * w_scale``, the bias and
+    ``1 / in_scale`` of the conv that reads its output, each as a contiguous
+    (Cout,) tensor) depend on the state alone, so they are computed at the
+    first forward after the state was loaded or moved, and kept. After
+    changing a buffer in place, call ``refresh_constants()``.
     """
 
     def __init__(self, cfg: ModelCfg, backend: str = "fused", device=None):
@@ -213,18 +220,45 @@ class QuantDenseBox(nn.Module):
                 self.add_module(leaf, q)
             self._q[name] = q
         self.register_buffer("f4_scale", torch.ones((), device=device))
+        self._consts: Dict[Tuple[str, Optional[str]], tuple] = {}
+
+    def refresh_constants(self) -> None:
+        """Forget the cached epilogue vectors; the next forward recomputes
+        them from the buffers."""
+        self._consts = {}
+
+    def load_state_dict(self, *args, **kwargs):
+        self.refresh_constants()
+        return super().load_state_dict(*args, **kwargs)
+
+    def _apply(self, *args, **kwargs):       # .to(), .cuda(), .cpu()
+        self.refresh_constants()
+        return super()._apply(*args, **kwargs)
+
+    def _conv_constants(self, name: str, nxt: Optional[str]):
+        """(scale, bias, out_scale) of conv ``name`` whose output conv
+        ``nxt`` reads (``out_scale`` None without one): (Cout,) float32."""
+        consts = self._consts.get((name, nxt))
+        if consts is None:
+            q = self._q[name]
+            cout, dev = q.w_q.shape[0], q.w_q.device
+            out_scale = (channel_vector(1.0 / self._q[nxt].in_scale, cout, dev)
+                         if nxt is not None else None)
+            consts = self._consts[(name, nxt)] = (
+                channel_vector(q.in_scale * q.w_scale, cout, dev),
+                channel_vector(q.bias, cout, dev), out_scale)
+        return consts
 
     def _conv(self, x_q: torch.Tensor, name: str, nxt: Optional[str], *,
               relu: bool = True) -> torch.Tensor:
         """x_q int8 at in_scale(name) -> int8 at in_scale(nxt), or float32
         when ``nxt`` is None."""
-        q = self._q[name]
-        out_scale = 1.0 / self._q[nxt].in_scale if nxt is not None else None
-        scale = q.in_scale * q.w_scale
+        w_q = self._q[name].w_q
+        scale, bias, out_scale = self._conv_constants(name, nxt)
         if self.backend == "hybrid":
-            acc = qconv_int8(x_q, q.w_q, None, None, out="int32")
-            return requant_epilogue(acc, scale, q.bias, out_scale, relu=relu)
-        return qconv_int8(x_q, q.w_q, scale, q.bias, out_scale, relu=relu)
+            acc = qconv_int8(x_q, w_q, None, None, out="int32")
+            return requant_epilogue(acc, scale, bias, out_scale, relu=relu)
+        return qconv_int8(x_q, w_q, scale, bias, out_scale, relu=relu)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

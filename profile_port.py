@@ -2,7 +2,7 @@
 """Where a device call of the port's serving path, and a train step, spend
 their time.
 
-    python3 profile_port.py [--calls 5]     # from the repository root, one CUDA card
+    python3 profile_port.py [--calls 5] [--only int8,qconv]   # repository root, one CUDA card
 
 Prints one JSON line per probe, after the card's name and power limit:
   cell        for each serving cell of chip_smoke.py (paper and turbo, B=8,
@@ -31,7 +31,17 @@ Prints one JSON line per probe, after the card's name and power limit:
               conv+bias+ReLU (torch.cudnn_convolution_relu), by CUDA events,
               alternated, with the largest difference of their outputs;
   resize      infer/resize.py's einsum form against batched products on
-              NHWC as it lies, at each level of the paper cell's pyramid.
+              NHWC as it lies, at each level of the paper cell's pyramid;
+  qconv       the int8 conv kernel alone: device time (CUDA-graph replay) of
+              every conv shape of the turbo int8 model at B=8, their sum
+              over the 14 launches of a device call, four of them at B = 1
+              to 32 (the cost of a launch and of a round of tiles), and the
+              paper-width int8 forward (B=2, 240x320) on the host clock with
+              its kernel time by kind. Uses only ``qconv_int8`` and ``QuantDenseBox``,
+              so the same script times an older tree of the package.
+``--only`` takes a comma-separated subset of the groups serve (paper,
+turbo), int8 (turbo_int8, turbo_int8_hybrid), lm (malf_bf16,
+turbo_int8_lm4), train, fused_conv, resize, qconv; the default is all.
 Without a CUDA card it exits 1 and prints no result.
 """
 
@@ -44,8 +54,9 @@ import time
 
 import numpy as np
 
-from chip_smoke import (card_line, emit, init_model, init_quant_model,
-                        landmark_cells, median_ms, serving_cells, train_cfgs,
+from chip_smoke import (QCONV_CASES, TURBO_LAUNCHES, card_line, device_ms,
+                        emit, init_model, init_quant_model, landmark_cells,
+                        median_ms, qconv_inputs, serving_cells, train_cfgs,
                         with_live_threshold)
 
 CANVAS = (8, 480, 640, 3)
@@ -56,7 +67,8 @@ def kernel_kind(name: str) -> str:
     n = name.lower()
     for kind, keys in (
             ("nms_kernel", ("iou_mask", "sweep_kernel")),
-            ("int8_conv_kernel", ("qconv_kernel",)),
+            ("int8_conv_kernel", ("qconv_kernel", "qconv_mma_kernel",
+                                  "qconv_dp4a_kernel")),
             ("requant_kernel", ("requant_kernel",)),
             ("window_kernel", ("window_kernel",)),
             ("rasterizer_kernel", ("boxes_kernel", "landmarks_kernel")),
@@ -239,13 +251,72 @@ def probe_resize(infer_cfg, host):
     return out
 
 
+def probe_qconv():
+    """The int8 conv kernel's device time at every conv shape of the turbo
+    int8 model (B=8, in the mode the model runs the layer in), and the
+    paper-width int8 forward."""
+    import torch
+
+    from densebox_tpu_torch import kitti_vehicle
+    from densebox_tpu_torch.ops.kernels.qconv import qconv_int8
+
+    rng = np.random.RandomState(5)
+    layers = {}
+    for name, *shape in QCONV_CASES:
+        if name not in TURBO_LAUNCHES:
+            continue
+        x, wq, scale, bias, osc = qconv_inputs(rng, *shape, "cuda")
+        kw = dict(relu=False) if shape[4] <= 4 else dict(out_scale=osc)
+        layers[name] = [device_ms(lambda: qconv_int8(x, wq, scale, bias, **kw))
+                        for _ in range(2)]
+    per_call = sum(min(v) * TURBO_LAUNCHES[k] for k, v in layers.items())
+    # device time against the batch: what a launch costs before its first
+    # tile is done, and what each further round of tiles adds
+    scaling = {}
+    for name, *shape in QCONV_CASES:
+        if name not in SCALED_LAYERS:
+            continue
+        for b in (1, 2, 4, 8, 16, 32):
+            x, wq, scale, bias, osc = qconv_inputs(rng, b, *shape[1:], "cuda")
+            scaling.setdefault(name, {})[f"B{b}"] = device_ms(
+                lambda: qconv_int8(x, wq, scale, bias, out_scale=osc))
+    cfg = dataclasses.replace(kitti_vehicle().model, compute_dtype="bfloat16")
+    x = torch.from_numpy(np.random.RandomState(7).rand(2, 240, 320, 3)
+                         .astype(np.float32)).cuda()
+    model = init_quant_model(cfg, x)
+
+    def call():
+        with torch.inference_mode():
+            return model(x)
+
+    res = {"probe": "qconv", "batch": 8, "device_ms_two_readings": layers,
+           "per_device_call_14_launches_ms": per_call,
+           "device_ms_by_batch": scaling,
+           "paper_int8_forward": {"input": list(x.shape),
+                                  "forward_ms": host_ms(call, 10)}}
+    res["paper_int8_forward"].update(trace_calls(call, 3))
+    return res
+
+
+# layers of the qconv probe that are also timed at B = 1 .. 32
+SCALED_LAYERS = ("turbo_conv1_2", "turbo_conv3_2", "turbo_conv4_2",
+                 "turbo_head_conv1")
+GROUPS = ("serve", "int8", "lm", "train", "fused_conv", "resize", "qconv")
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=5,
                     help="device calls in each cell's profiler trace")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups of probes to run: "
+                         + ", ".join(GROUPS))
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        ap.error(f"--only takes a subset of {GROUPS}")
     if not torch.cuda.is_available():
         print("profile_port: torch.cuda.is_available() is false; this "
               "script runs only on a CUDA card", file=sys.stderr)
@@ -257,26 +328,34 @@ def main(argv=None) -> int:
     host = torch.from_numpy(np.random.RandomState(0).rand(*CANVAS)
                             .astype(np.float32)).pin_memory()
     cells = serving_cells()
-    for name, *cfgs in cells:
-        emit(probe_cell(name, *cfgs, host, args.calls))
+    if "serve" in only:
+        for name, *cfgs in cells:
+            emit(probe_cell(name, *cfgs, host, args.calls))
     _, turbo, turbo_infer, label = cells[1]
-    for name, quant in (("turbo_int8", "fused"),
-                        ("turbo_int8_hybrid", "hybrid")):
-        emit(probe_cell(name, turbo, turbo_infer, label, host, args.calls,
-                        quant=quant))
-    for name, *cfgs, quant in landmark_cells():
-        emit(probe_cell(name, *cfgs, host, args.calls, quant=quant,
-                        loc_bias=1.0))
-    for dtype in ("float32", "bfloat16"):
-        for (preset, cfg), cell in zip(train_cfgs(),
-                                       ("train_paper", "train_malf")):
-            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-                cfg.model, compute_dtype=dtype))
-            emit(probe_train(cell, cfg, preset == "malf_face", args.calls))
-            torch.cuda.empty_cache()
+    if "int8" in only:
+        for name, quant in (("turbo_int8", "fused"),
+                            ("turbo_int8_hybrid", "hybrid")):
+            emit(probe_cell(name, turbo, turbo_infer, label, host, args.calls,
+                            quant=quant))
+    if "lm" in only:
+        for name, *cfgs, quant in landmark_cells():
+            emit(probe_cell(name, *cfgs, host, args.calls, quant=quant,
+                            loc_bias=1.0))
+    if "train" in only:
+        for dtype in ("float32", "bfloat16"):
+            for (preset, cfg), cell in zip(train_cfgs(),
+                                           ("train_paper", "train_malf")):
+                cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                    cfg.model, compute_dtype=dtype))
+                emit(probe_train(cell, cfg, preset == "malf_face", args.calls))
+                torch.cuda.empty_cache()
     _, paper, paper_infer, _ = cells[0]
-    emit(probe_fused_conv(paper))
-    emit(probe_resize(paper_infer, host))
+    if "fused_conv" in only:
+        emit(probe_fused_conv(paper))
+    if "resize" in only:
+        emit(probe_resize(paper_infer, host))
+    if "qconv" in only:
+        emit(probe_qconv())
     return 0
 
 

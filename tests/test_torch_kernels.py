@@ -187,12 +187,20 @@ def qconv_case(seed, b, h, w, cin, cout, k):
 
 
 # (B, H, W, Cin, Cout, k): aligned and ragged tiles (W=33, H not a multiple
-# of the 8-row tile), channel tails (Cin 3, 5), every channel block (Cout 1,
-# 4, 16, 32, 64 and 130), Cin over several 32-channel chunks
+# of the 8-row tile), channel tails on the CUDA-core variant (Cin 3, 5, 6),
+# every channel block of both variants (Cout 1, 4, 5, 16, 32, 64 and 130),
+# Cin that is 16 but not 32 channels past a k32 step (48, 72, 80), weights
+# resident with the input in 64-channel chunks (144, 192), weights streamed
+# in chunks (256 and 512 at 3x3, 768 at 1x1), a map that is no multiple of
+# the 8x16 tile in either direction, and B = 1 at a model's map
 QCONV_SHAPES = [
     (2, 16, 32, 16, 16, 3), (1, 12, 33, 5, 4, 3), (2, 9, 17, 3, 64, 3),
     (1, 8, 24, 72, 130, 3), (2, 16, 33, 40, 32, 1), (1, 13, 20, 128, 1, 1),
     (1, 7, 9, 192, 64, 1),
+    (2, 9, 17, 6, 64, 3), (1, 13, 33, 512, 5, 1), (1, 13, 33, 64, 6, 3),
+    (2, 27, 45, 48, 16, 3), (1, 17, 19, 144, 40, 3), (1, 7, 9, 80, 130, 3),
+    (1, 13, 33, 768, 512, 1), (1, 11, 19, 256, 256, 3),
+    (1, 9, 17, 512, 512, 3), (1, 120, 160, 64, 64, 3), (1, 5, 7, 16, 8, 1),
 ]
 
 
@@ -204,15 +212,41 @@ def test_qconv_kernel_matches_plain_version(cuda, shape, mode):
                                for a in qconv_case(sum(shape), *shape))
     kw = dict(out="int32") if mode == "int32" else {}
     osc = osc if mode == "int8" else None
-    before = kqconv.launches
+    kqconv.reset_launches()
     got = kqconv.qconv_int8(x, wq, scale, bias, osc, relu=mode != "f32", **kw)
     torch.cuda.synchronize()
-    assert kqconv.launches == before + 1
+    variant = kqconv.kernel_variant(*shape[3:])
+    assert kqconv.launches == 1
+    assert kqconv.variant_launches == {variant: 1}
+    assert kqconv.last_plan["variant"] == variant
+    assert variant.startswith("mma" if shape[3] % 16 == 0 else "dp4a")
     want = kqconv.qconv_reference(x, wq, scale, bias, osc,
                                   relu=mode != "f32", **kw)
     assert got.dtype == want.dtype == {"int8": torch.int8, "f32": torch.float32,
                                        "int32": torch.int32}[mode]
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_qconv_kernel_plans(cuda):
+    """What the C side reports of its plan: weights resident at the narrow
+    models' widths and streamed in chunks at the paper's, a ring of at
+    least two stages, persistent blocks no more than there are tiles."""
+    for shape, resident in [((8, 120, 160, 64, 64, 3), True),
+                            ((8, 60, 80, 128, 128, 3), True),
+                            ((1, 30, 40, 512, 512, 3), False),
+                            ((1, 30, 40, 768, 512, 1), True)]:
+        x, wq, scale, bias, osc = (torch.from_numpy(a).to(cuda)
+                                   for a in qconv_case(1, *shape))
+        kqconv.qconv_int8(x, wq, scale, bias, osc)
+        torch.cuda.synchronize()
+        plan = kqconv.last_plan
+        b, h, w = shape[:3]
+        assert plan["weights_resident"] is resident, shape
+        assert 2 <= plan["stages"] <= 4
+        assert plan["chunk_channels"] % 16 == 0
+        assert 1 <= plan["grid_x"] <= b * -(-h // 8) * -(-w // 16)
+        assert plan["shared_bytes"] <= 232448
 
 
 @pytest.mark.gpu
@@ -251,6 +285,36 @@ def test_int8_wrapper_checks(cuda):
         kqconv.qconv_int8(x.transpose(1, 2), w, 1.0, 0.0)
     with pytest.raises(ValueError, match="int32"):
         krequant.requant_epilogue(torch.zeros(2, 4, device=cuda), 1.0, 0.0)
+
+
+@pytest.mark.gpu
+def test_qconv_alignment(cuda):
+    """The tensor-core variant copies 16 bytes at a time: a view of x or w
+    that starts off a 16-byte boundary is refused, its clone is taken, and
+    the CUDA-core variant takes a view at any offset."""
+    x, wq, scale, bias, osc = (torch.from_numpy(a).to(cuda)
+                               for a in qconv_case(2, 2, 9, 17, 16, 16, 3))
+    want = kqconv.qconv_reference(x, wq, scale, bias, osc)
+    flat = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+    for off in (4, 1):
+        view = flat[off:off + x.numel()].view(x.shape).copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16 == off
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kqconv.qconv_int8(view, wq, scale, bias, osc)
+        assert torch.equal(kqconv.qconv_int8(view.clone(), wq, scale, bias,
+                                             osc), want)
+    wflat = torch.empty(wq.numel() + 16, dtype=torch.int8, device=cuda)
+    wview = wflat[4:4 + wq.numel()].view(wq.shape).copy_(wq)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kqconv.qconv_int8(x, wview, scale, bias, osc)
+    x5, w5, s5, b5, o5 = (torch.from_numpy(a).to(cuda)
+                          for a in qconv_case(3, 2, 9, 17, 5, 24, 3))
+    flat5 = torch.empty(x5.numel() + 16, dtype=torch.int8, device=cuda)
+    view5 = flat5[1:1 + x5.numel()].view(x5.shape).copy_(x5)
+    kqconv.reset_launches()
+    got = kqconv.qconv_int8(view5, w5, s5, b5, o5)
+    assert kqconv.variant_launches == {"dp4a_n32": 1}
+    assert torch.equal(got, kqconv.qconv_reference(x5, w5, s5, b5, o5))
 
 
 # (B, S, L, Hm, Wm, D, win): the MALF serve shape (5-scale pyramid of a
