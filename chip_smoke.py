@@ -9,8 +9,8 @@ not 0):
   1. no card, no run: without CUDA the script exits 1 with no result;
   2. the card's name and power limit (nvidia-smi);
   3. build the CUDA kernels (NMS, int8 conv, requant, window gather, GT
-     rasterizers, OHEM) from densebox_tpu_torch/csrc, one nvcc per source,
-     all at once;
+     rasterizers, OHEM, and the empty kernel the launch floors are timed
+     with) from densebox_tpu_torch/csrc, one nvcc per source, all at once;
   4. NMS kernel against its plain PyTorch version on the card (B=8,
      K in {256, 512, 1024}, random boxes and IoU-on-threshold pairs: keep
      masks, indices, boxes and scores identical), with median times, and
@@ -42,11 +42,16 @@ not 0):
      launch per conv per device call, all 14 on the tensor-core variant,
      one NMS launch per device call;
  12. the same with the hybrid chain (int32 conv, then requant);
- 13. window-gather kernel against its plain version on the card, bitwise:
-     the MALF serve shape (B=8, S=5, L=5, 170x228, D=64, win 32, bf16 and
-     f32, per-landmark origins), the bench's lm4 shape (B=8, S=1, L=4,
-     120x160, shared origins) and a ragged one (win 17, odd map, D=5);
-     median times at the first two;
+ 13. window-gather kernel against its plain version on the card, bitwise,
+     in bf16 and f32: the MALF serve shape (B=8, S=5, L=5, 170x228, D=64,
+     win 32, per-landmark origins), the bench's lm4 shape (B=8, S=1, L=4,
+     120x160, shared origins), a ragged one (win 17, odd map, D=5: the
+     element copy), a short one (win 8) and windows on every edge of an odd
+     map at every column offset modulo 8, from maps that start off a 16-byte
+     boundary (win 8, 17, 32; shared and per-landmark origins), and origins
+     outside the map (moved into it, as by the plain version); which of the
+     two copies ran; device times (CUDA-graph replay) at the first two
+     shapes beside the byte bound and an empty launch of the same grid;
  14. landmark decode, card against CPU: the malf_face() model (width 1.0,
      5 landmarks, refine) in bf16 runs its 5-scale pyramid once on the card
      (B=2, 240x320); everything after the forward (decode, cap, NMS, scale
@@ -64,18 +69,28 @@ not 0):
      bitwise: packed rows at the training shape (B=32, K=16, M=60, L=5; out
      of band and invalid slots, an empty patch, coincident and equidistant
      centres, rim-exact discs) and a ragged one (B=3, K=1, M=8, L=1), then
-     px boxes through ``rasterize`` on the card against the CPU; median
-     times at the training shape;
+     px boxes through ``rasterize`` on the card against the CPU; event and
+     device times at the training shape beside an empty launch of each
+     kernel's grid;
  18. OHEM kernel against its plain version on the card, bitwise, at B=32,
      P=3600: random errors, all negatives tied, no positives, fewer
-     candidates than the quota, and the errors of a real forward; median
-     times;
+     candidates than the quota, the errors of a real forward, and candidate
+     sets of 0, 1, the quotas and one more, around 256, and the whole
+     sample; two launches against one stacked launch for a step's two
+     terms; the floors: an empty launch of the same grid, and the chain of
+     block-wide rounds (those the worst sample of this run needs by the
+     schedule's numpy model, at the measured time of one round; the levels
+     one warp walks alone are counted beside it and not timed);
  19. one train step, card against CPU: kitti_vehicle() and malf_face() at
      full width in f32, B=4, 240 px, the same state, batch and given draws:
      GT maps identical, OHEM masks identical on the same errors, loss and
      metrics within 1e-4 relative, every gradient within 5e-3 of its largest
      entry (cuDNN sums in another order than the CPU; a float64 step on the
-     CPU shows float32's own rounding noise beside it);
+     CPU shows float32's own rounding noise beside it); then the step at
+     B=32 (malf_face through the canvas step) taken twice from the same
+     parameters, momentum and generator state: parameters, momentum, loss
+     and update norm identical bit for bit; ms/step with the step's cuDNN
+     pinning and with it taken out, in turns;
  20. train kitti_vehicle() at full width, B=32, 240 px patches: 2 + 30
      steps of make_train_step on synthetic batches drawn on the card; every
      loss and update norm finite, the mean loss of the last 5 steps below
@@ -90,8 +105,10 @@ Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
 lists the seven kernels (with the least time the card could take for the
 same bytes or operations, from the published peaks of an H100 SXM, and one
-PyTorch call's time where one computes the same function), after the card
-line again; the last line is {"ok": true, "device": {...}}.
+PyTorch call's time where one computes the same function; ``ms`` is device
+time by CUDA-graph replay for the int8 conv, the window gather, the
+rasterizers and OHEM, which also carry ``floor_ms``, an empty launch of their
+grid), after the card line again; the last line is {"ok": true, "device": {...}}.
 
 Weights are random (torch.Generator seeds), so detections are not
 meaningful objects: the score threshold of the serve phases is set from
@@ -116,7 +133,8 @@ from unittest import mock
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("nms", "qconv", "requant", "window", "labels", "ohem")  # csrc/<name>.cu
+# csrc/<name>.cu; floor.cu is the empty kernel the launch floors are timed with
+KERNELS = ("nms", "qconv", "requant", "window", "labels", "ohem", "floor")
 
 
 def emit(obj) -> None:
@@ -676,13 +694,37 @@ def init_quant_model(cfg, calib, backend="fused", seed=0, loc_bias=0.0):
     return model.eval()
 
 
+def empty_launch_ms(grid_x: int, grid_y: int, block: int) -> float:
+    """Device time of an empty kernel of that grid and block
+    (csrc/floor.cu), read as ``device_ms`` reads a kernel: what the launch
+    alone costs before any work."""
+    import ctypes
+
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import build
+
+    fn = build.load("floor").densebox_empty_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        rc = fn(grid_x, grid_y, block, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty launch failed with CUDA error {rc}")
+
+    return device_ms(launch)
+
+
 # (case, B, S, L, Hm, Wm, D, win, shared origins): the MALF serve shape (the
 # 5-scale pyramid of a 480x640 canvas; scale 1.4142 gives the largest map,
-# 170x228), the bench's lm4 shape (one scale, 120x160, anchor-less) and a
-# ragged one
+# 170x228), the bench's lm4 shape (one scale, 120x160, anchor-less), a
+# ragged one (34- and 68-byte rows: the element kernel) and a short window
+# (16-byte rows in bf16: one vector a row)
 WINDOW_CASES = [("malf", 8, 5, 5, 170, 228, 64, 32, False),
                 ("lm4", 8, 1, 4, 120, 160, 64, 32, True),
-                ("ragged", 3, 2, 3, 37, 29, 5, 17, False)]
+                ("ragged", 3, 2, 3, 37, 29, 5, 17, False),
+                ("short", 2, 2, 3, 21, 27, 9, 8, True)]
 
 
 def window_inputs(rng, b, s, num_lm, hm, wm, d, win, shared, dtype):
@@ -696,44 +738,99 @@ def window_inputs(rng, b, s, num_lm, hm, wm, d, win, shared, dtype):
     return [maps] + [torch.from_numpy(a.astype(np.int32)).cuda() for a in idx]
 
 
+def window_edge_inputs(rng, win, shared, dtype):
+    """Windows on every edge of an odd-sized map, at every column offset
+    modulo 8 from both sides (every byte shift of the realigned copy, odd
+    and even), and maps that start one element into their storage (the
+    source off a 16-byte boundary even at column 0)."""
+    import torch
+
+    b, s, num_lm, hm, wm = 2, 2, 3, 45, 53
+    flat = torch.from_numpy(rng.standard_normal(b * s * num_lm * hm * wm + 1)
+                            .astype(np.float32)).cuda().to(dtype)
+    maps = flat[1:].view(b, s, num_lm, hm, wm)
+    xs = list(range(8)) + [wm - win - k for k in range(8)]
+    ys = [0, hm - win, 1, hm - win - 1]
+    d = len(xs) * len(ys)
+    lo = 1 if shared else num_lm
+    y0 = np.repeat(ys, len(xs))[None, :, None] + np.zeros((b, d, lo), int)
+    x0 = np.tile(xs, len(ys))[None, :, None] + np.zeros((b, d, lo), int)
+    if not shared:                     # another offset per landmark channel
+        x0 = (x0 + np.arange(lo)) % (wm - win + 1)
+    sel = rng.randint(0, s, (b, d))
+    return [maps] + [torch.from_numpy(a.astype(np.int32)).cuda()
+                     for a in (sel, y0, x0)]
+
+
 def phase_window():
     import torch
 
     from densebox_tpu_torch.ops.kernels import window as kw
 
     rng = np.random.RandomState(13)
-    results, times = [], {}
+    results, timed = [], {}
+
+    def check(name, shape, shared, dtype, inputs, win):
+        got = kw.gather_windows(*inputs, win)
+        path = kw.last_path
+        want = kw.gather_windows_reference(*inputs, win)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        same = bool(torch.equal(got.view(bits), want.view(bits)))
+        dt = str(dtype).split(".")[-1]
+        rows = (win * inputs[0].element_size()) % 16 == 0
+        results.append({"case": name, "shape": shape, "shared": shared,
+                        "dtype": dt, "bitwise_equal": same, "kernel": path,
+                        "max_abs_err": float((got.float() - want.float())
+                                             .abs().max())})
+        if not same or path != ("rows" if rows else "elements"):
+            emit({"phase": "window_kernel", "results": results})
+            raise AssertionError(f"window kernel disagrees with its plain "
+                                 f"version or took the other copy "
+                                 f"({name}, {dt}, {path})")
+
     for name, *shape, shared in WINDOW_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            maps, sel, y0, x0 = window_inputs(rng, *shape, shared, dtype)
-            win = shape[-1]
-            got = kw.gather_windows(maps, sel, y0, x0, win)
-            want = kw.gather_windows_reference(maps, sel, y0, x0, win)
-            torch.cuda.synchronize()
-            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-            same = bool(torch.equal(got.view(bits), want.view(bits)))
-            dt = str(dtype).split(".")[-1]
-            results.append({"case": name, "shape": shape, "shared": shared,
-                            "dtype": dt, "bitwise_equal": same,
-                            "max_abs_err": float((got.float() - want.float())
-                                                 .abs().max())})
-            if not same:
-                emit({"phase": "window_kernel", "results": results})
-                raise AssertionError(f"window kernel disagrees with its plain "
-                                     f"version ({name}, {dt})")
-            if name != "ragged" and dtype == torch.bfloat16:
-                args = (maps, sel, y0, x0, win)
-                times[name] = (median_ms(lambda: kw.gather_windows(*args), 50),
-                               median_ms(lambda: kw.gather_windows_reference(
-                                   *args), 20))
+            inputs = window_inputs(rng, *shape, shared, dtype)
+            check(name, shape, shared, dtype, inputs, shape[-1])
+            if name in ("malf", "lm4"):
+                timed[name, dtype] = inputs + [shape[-1]]
+    for win in (8, 17, 32):
+        for shared in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                check("edges", [2, 2, 3, 45, 53, 64, win], shared, dtype,
+                      window_edge_inputs(rng, win, shared, dtype), win)
+    # origins from win before the map to win past it: both kernels move them
+    # into the map as the plain version does
+    for win in (8, 17):
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = [2, 2, 3, 37, 45, 50, win]
+            inputs = window_inputs(rng, *shape, False, dtype)
+            for k, size in ((2, 37), (3, 45)):
+                inputs[k] = torch.from_numpy(
+                    rng.randint(-win, size + 1, (2, 50, 3)).astype(np.int32)
+                ).cuda()
+            check("outside", shape, False, dtype, inputs, win)
+    args = timed["malf", torch.bfloat16]
+    times = (device_ms(lambda: kw.gather_windows(*args)),
+             median_ms(lambda: kw.gather_windows_reference(*args), 20))
+    device = {f"{n}_{str(dt).split('.')[-1]}":
+              device_ms(lambda: kw.gather_windows(*a))
+              for (n, dt), a in timed.items()}
     err = max(r["max_abs_err"] for r in results)
-    emit({"phase": "window_kernel", "results": results, "max_abs_err": err,
-          "median_ms": {f"{k}_bf16": {"kernel": t[0], "plain": t[1]}
-                        for k, t in times.items()}})
     # the windows read and written (bf16) and the int32 indices
     _, b, _, num_lm, _, _, d, win, _ = WINDOW_CASES[0]
-    return err, times["malf"], bound(
-        2 * b * d * num_lm * win * win * 2 + b * d * (1 + 2 * num_lm) * 4, 0)
+    bnd = bound(2 * b * d * num_lm * win * win * 2
+                + b * d * (1 + 2 * num_lm) * 4, 0)
+    floor_ms = empty_launch_ms(b * d, 1, 256)
+    emit({"phase": "window_kernel", "results": results, "max_abs_err": err,
+          "device_ms": device,
+          "event_ms_malf_bf16": {
+              "kernel": median_ms(lambda: kw.gather_windows(*args), 50),
+              "plain": times[1]},
+          "bound_ms_malf_bf16": bnd[0],
+          "empty_launch_ms_grid512_block256": floor_ms})
+    return err, times, bnd, None, {"floor_ms": floor_ms}
 
 
 def phase_decode_card_vs_cpu():
@@ -1068,21 +1165,33 @@ def phase_rasterizers():
             median_ms(lambda: kl.rasterize_landmarks_reference(
                 lm_rows, m, num_lm), 7))}
     err = max(r.get("max_abs_err", 0.0) for r in results)
+    b, k = rows.shape[:2]
+    device = {
+        "rasterize_boxes": device_ms(lambda: kl.rasterize_boxes(rows, m, inv)),
+        "rasterize_landmarks": device_ms(
+            lambda: kl.rasterize_landmarks(lm_rows, m, num_lm))}
+    # an empty kernel of each rasterizer's grid and block (csrc/labels.cu:
+    # 256 threads, a thread per pixel or per (pixel, channel), batch in y)
+    floors = {
+        "rasterize_boxes": empty_launch_ms(-(-m * m // 256), b, 256),
+        "rasterize_landmarks": empty_launch_ms(-(-m * m * num_lm // 256), b,
+                                               256)}
     emit({"phase": "rasterizer_kernels", "results": results,
           "max_abs_err": err,
           "median_ms": {n: {"kernel": t[0], "plain": t[1]}
-                        for n, t in times.items()}})
+                        for n, t in times.items()},
+          "device_ms": device, "empty_launch_ms_same_grid": floors})
     if not all(same.values()):
         raise AssertionError(f"rasterize on the card differs from the CPU: "
                              f"{same}")
-    b, k = rows.shape[:2]
     bounds = {
         "rasterize_boxes": bound(rows.numel() * 4 + b * m * m * 6 * 4,
                                  b * m * m * k * 12),
         "rasterize_landmarks": bound(lm_rows.numel() * 4
                                      + b * m * m * num_lm * 4,
                                      b * m * m * num_lm * k * 7)}
-    return err, times, bounds
+    times = {n: (device[n], t[1]) for n, t in times.items()}
+    return err, times, bounds, floors
 
 
 def ohem_case(rng, b, p, kind):
@@ -1103,54 +1212,157 @@ def ohem_case(rng, b, p, kind):
     return sq, pos, ign, rng.rand(b, p).astype(np.float32)
 
 
-def phase_ohem():
-    """Phase 18: the OHEM kernel against its plain version on the card,
-    bitwise, at B=32, P=3600."""
+def ohem_forward_case(b):
+    """``ohem_select`` inputs from a real forward: the squared errors of the
+    paper model's score map on a synthetic batch of ``b`` patches (P=3600),
+    its positives and gray zone, and uniforms drawn on the card."""
     import torch
 
     from densebox_tpu_torch import kitti_vehicle
     from densebox_tpu_torch.data import synthetic_batch
-    from densebox_tpu_torch.ops.kernels import ohem as ko
     from densebox_tpu_torch.ops.labels import rasterize
 
-    rng = np.random.RandomState(18)
-    b, p = 32, 3600
-    cases = {kind: [torch.from_numpy(a).cuda()
-                    for a in ohem_case(rng, b, p, kind)]
-             for kind in ("random", "tied", "no_pos", "short")}
-    # squared errors of a real forward: the paper model on a synthetic batch
     cfg = kitti_vehicle()
     gen = torch.Generator(device="cuda").manual_seed(18)
     batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes)
     gts = rasterize(batch["boxes"], batch["box_valid"], cfg.label)
     with torch.inference_mode():
         score = init_model(cfg.model, "cuda")(batch["image"])["score"]
-    cases["forward"] = [
-        ((score - gts["score"]) ** 2).reshape(b, p).contiguous(),
-        (gts["score"] > 0.5).reshape(b, p), (gts["ignore"] > 0.5).reshape(b, p),
-        torch.rand((b, p), device="cuda", generator=gen)]
+    p = score[0].numel()
+    return [((score - gts["score"]) ** 2).reshape(b, p).contiguous(),
+            (gts["score"] > 0.5).reshape(b, p), (gts["ignore"] > 0.5).reshape(b, p),
+            torch.rand((b, p), device="cuda", generator=gen)]
+
+
+def ohem_edge_case(rng, p):
+    """One sample per row whose candidate set is empty, one pixel, as large
+    as the quota (min_neg = 16: n_hard = n_rand = 8, so 8 and 9 bracket the
+    hard quota and 16 and 17 the whole), around the 256 elements one warp
+    finishes on, and all but one pixel; no positives, half the rows with
+    tied errors."""
+    sizes = [0, 1, 8, 9, 16, 17, 255, 256, 257, 300, p - 1, p]
+    b = 2 * len(sizes)
+    sq = rng.uniform(0, 2, (b, p)).astype(np.float32) ** 2
+    sq[len(sizes):] = np.round(sq[len(sizes):] * 2) / 2
+    ign = np.ones((b, p), bool)
+    for i, n in enumerate(sizes * 2):
+        ign[i, rng.permutation(p)[:n]] = False
+    return sq, np.zeros((b, p), bool), ign, rng.rand(b, p).astype(np.float32)
+
+
+def ohem_chain(args):
+    """The longest chain of dependent steps a sample of ``args`` puts on its
+    block under the kernel's schedule (its numpy model): block-wide rounds
+    (4 outside the bisections, then per bisection the counted rounds and the
+    2 barriers around the warp's part) and levels one warp walks alone."""
+    from densebox_tpu_torch.ops.kernels import ohem as ko
+
+    _, calls = ko.reference_bisections(*args, 1.0, 0.5, 16)
+    calls = [[t.cpu().numpy() for t in call] for call in calls]
+    worst = (0, 0)
+    for i in range(len(calls[0][0])):
+        rounds, warp = 4, 0
+        for values, cand, n_want, _ in calls:
+            _, r, w = ko.staged_threshold(values[i], cand[i], int(n_want[i]))
+            rounds += r + (2 if w else 0)
+            warp += w
+        worst = max(worst, (rounds, warp))
+    return {"block_rounds": worst[0], "warp_levels": worst[1]}
+
+
+def phase_ohem():
+    """Phase 18: the OHEM kernel against its plain version on the card,
+    bitwise, at B=32, P=3600 and on the edge sets; device times of the
+    kernel, of two launches against one stacked launch, and of its
+    floors."""
+    import ctypes
+
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import build
+    from densebox_tpu_torch.ops.kernels import ohem as ko
+
+    rng = np.random.RandomState(18)
+    b, p = 32, 3600
+    cases = {kind: [torch.from_numpy(a).cuda()
+                    for a in ohem_case(rng, b, p, kind)]
+             for kind in ("random", "tied", "no_pos", "short")}
+    cases["forward"] = ohem_forward_case(b)
+    cases["edge_sets"] = [torch.from_numpy(a).cuda()
+                          for a in ohem_edge_case(rng, p)]
     results = []
     for kind, args in cases.items():
-        got = ko.ohem_select(*args, 1.0, 0.5, 16)
         want = ko.ohem_select_reference(*args, 1.0, 0.5, 16)
+        got = ko.ohem_select(*args, 1.0, 0.5, 16)
         torch.cuda.synchronize()
-        n_diff = int((got != want).sum())
-        results.append({"case": kind, "shape": [b, p],
+        results.append({"case": kind, "shape": list(args[0].shape),
                         "positives": int(args[1].sum()),
-                        "sampled": int(got.sum()), "mismatches": n_diff})
-        if n_diff or not got.any():
+                        "sampled": int(want.sum()),
+                        "mismatches": int((got != want).sum())})
+        if results[-1]["mismatches"] or not want.any():
             emit({"phase": "ohem_kernel", "results": results})
             raise AssertionError(f"OHEM kernel disagrees with its plain "
                                  f"version ({kind})")
     args = cases["forward"]
-    times = (median_ms(lambda: ko.ohem_select(*args, 1.0, 0.5, 16), 50),
+    times = (device_ms(lambda: ko.ohem_select(*args, 1.0, 0.5, 16)),
              median_ms(lambda: ko.ohem_select_reference(*args, 1.0, 0.5, 16), 5))
+    # a malf step's two terms (score and refined: other errors and uniforms,
+    # the same flags): two launches, or one over the stacked terms
+    sq2 = torch.rand_like(args[0]) ** 2
+    rnd2 = torch.rand_like(args[3])
+
+    def two_launches():
+        ko.ohem_select(*args, 1.0, 0.5, 16)
+        ko.ohem_select(sq2, args[1], args[2], rnd2, 1.0, 0.5, 16)
+
+    def stacked():
+        ko.ohem_select(torch.cat([args[0], sq2]), args[1].repeat(2, 1),
+                       args[2].repeat(2, 1), torch.cat([args[3], rnd2]),
+                       1.0, 0.5, 16)
+
+    terms = {"two_launches": {"device_ms": device_ms(two_launches),
+                              "event_ms": median_ms(two_launches, 50)},
+             "one_stacked_launch": {"device_ms": device_ms(stacked),
+                                    "event_ms": median_ms(stacked, 50)}}
+    # floors: an empty kernel of the kernel's grid and block, and a chain of
+    # dependent block-wide rounds through the kernel's reducer
+    threads = build.load("ohem").densebox_ohem_block_threads(p)
+    chain_fn = build.load("floor").densebox_round_chain
+    chain_fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    chain_fn.restype = ctypes.c_int
+    scratch = torch.empty(b, dtype=torch.int32, device="cuda")
+
+    def chain(rounds):
+        def launch():
+            rc = chain_fn(scratch.data_ptr(), b, threads, rounds,
+                          torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"round chain failed with CUDA error {rc}")
+        return device_ms(launch)
+
+    round_us = (chain(200) - chain(0)) / 200 * 1e3
+    schedule = {kind: ohem_chain(cases[kind]) for kind in ("forward", "tied")}
+    floor_ms = empty_launch_ms(b, 1, threads)
+    bnd = bound(b * p * 11, b * p * 3 * 40 * 2)
     emit({"phase": "ohem_kernel", "results": results, "max_abs_err": 0.0,
-          "median_ms": {"forward_B32_P3600": {"kernel": times[0],
-                                              "plain": times[1]}}})
+          "device_ms": {"forward_B32_P3600": times[0],
+                        "tied_B32_P3600": device_ms(
+                            lambda: ko.ohem_select(*cases["tied"], 1.0, 0.5, 16))},
+          "event_ms": {"kernel": median_ms(
+              lambda: ko.ohem_select(*args, 1.0, 0.5, 16), 50),
+              "plain": times[1]},
+          "block_threads": threads,
+          "two_terms": terms, "bound_ms": bnd[0],
+          "empty_launch_ms_same_grid": floor_ms,
+          "block_round_us": round_us,
+          "schedule_worst_sample": schedule,
+          # the launch and the block-wide rounds of the schedule's model; the
+          # warp's levels are not in it
+          "block_rounds_floor_ms_forward": (
+              floor_ms + schedule["forward"]["block_rounds"] * round_us * 1e-3)})
     # 10 bytes read and 1 written per pixel; three 40-step bisections, each
     # step one compare and one add per pixel
-    return 0.0, times, bound(b * p * 11, b * p * 3 * 40 * 2)
+    return 0.0, times, bnd, None, {"floor_ms": floor_ms}
 
 
 def train_cfgs():
@@ -1252,6 +1464,80 @@ def phase_step_card_vs_cpu():
                 or abs(norm["cuda"] - norm["cpu"]) > grad_tol * norm["cpu"]):
             raise AssertionError(f"{name}: gradients on the card differ from "
                                  f"the CPU: {grad_rel}")
+
+
+def phase_step_repeats():
+    """Phase 19, second part: the full-width step (B=32, f32; malf_face
+    through the canvas step) taken twice from the same parameters, momentum
+    and generator state gives the same parameters, momentum and update norm
+    bit for bit; and what the pinning that makes it so
+    (``train/loop.py:repeatable_kernels``) costs, as ms/step with it and
+    with it taken out, in turns."""
+    import contextlib
+
+    import torch
+
+    from densebox_tpu_torch import DenseBox
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.train import (create_train_state, loop,
+                                          make_canvas_train_step,
+                                          make_train_step)
+
+    for name, cfg in train_cfgs():
+        canvas = name == "malf_face"
+        data_label = (dataclasses.replace(cfg.label, patch_size=480) if canvas
+                      else cfg.label)
+        model = DenseBox(cfg.model)
+        state = create_train_state(model, cfg)
+        step = (make_canvas_train_step if canvas else make_train_step)(model,
+                                                                       cfg)
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        batch = synthetic_batch(gen, cfg.train.batch_size, data_label,
+                                cfg.train.max_boxes, cfg.model.num_landmarks)
+        step(state, batch)                       # a state with momentum
+        start = ({k: v.clone() for k, v in model.state_dict().items()},
+                 {k: v.clone() for k, v in state.momentum.items()},
+                 state.generator.get_state())
+        runs = []
+        for _ in range(2):
+            state.load(start[0], start[1], 1)
+            state.generator.set_state(start[2])
+            _, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            runs.append(({k: v.clone() for k, v in model.state_dict().items()},
+                         {k: v.clone() for k, v in state.momentum.items()},
+                         metrics["update_norm"].clone(),
+                         metrics["loss_total"].clone()))
+        differing = sorted(
+            {k for a, b in zip(runs[0][:2], runs[1][:2]) for k in a
+             if not torch.equal(a[k], b[k])})
+        norms = [r[2].item() for r in runs]
+        same = not differing and torch.equal(runs[0][2], runs[1][2]) \
+            and torch.equal(runs[0][3], runs[1][3])
+
+        def ms_per_step(steps=8):
+            step(state, batch)                   # cuDNN settles here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(state, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps * 1e3
+
+        ms = {"pinned": [], "unpinned": []}
+        for _ in range(2):
+            ms["pinned"].append(ms_per_step())
+            with mock.patch.object(loop, "repeatable_kernels",
+                                   contextlib.nullcontext):
+                ms["unpinned"].append(ms_per_step())
+        emit({"phase": "train_step_repeats", "model": f"{name} w1.0 f32",
+              "batch": cfg.train.batch_size, "canvas": 480 if canvas else None,
+              "bit_equal": same, "tensors_differing": differing,
+              "update_norms": norms, "ms_per_step_two_readings": ms,
+              "pinning_cost_share": min(ms["pinned"]) / min(ms["unpinned"]) - 1})
+        if not same:
+            raise AssertionError(f"{name}: two runs of the same step differ: "
+                                 f"{differing}, update norms {norms}")
 
 
 def phase_train(name, cfg, steps, canvas):
@@ -1359,30 +1645,34 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     phase_build()
-    rows = {}          # kernel name -> (max_abs_err, (ms, plain_ms), bound, library_ms)
-    rows["nms"] = phase_nms() + (None,)
+    # kernel name -> (max_abs_err, (ms, plain_ms), bound, library_ms, further
+    # keys of its entry in the kernels line)
+    rows = {}
+    rows["nms"] = phase_nms() + (None, {})
     phase_forward()
 
     launches = {name: phase_serve(f"serve_{name}_bf16", *cfgs)
                 for name, *cfgs in serving_cells()}
-    rows["qconv"] = phase_qconv()
-    rows["requant"] = phase_requant() + (None,)
+    rows["qconv"] = phase_qconv() + ({},)
+    rows["requant"] = phase_requant() + (None, {})
     phase_forward_int8()
     _, turbo, turbo_infer, label = serving_cells()[1]
     for quant in ("fused", "hybrid"):
         launches[quant] = phase_serve(f"serve_turbo_int8_{quant}", turbo,
                                       turbo_infer, label, quant=quant)
-    rows["window"] = phase_window() + (None,)
+    rows["window"] = phase_window()
     phase_decode_card_vs_cpu()
     for name, *cfgs, quant in landmark_cells():
         launches[name] = phase_serve(f"serve_{name}", *cfgs, quant=quant,
                                      loc_bias=1.0)
 
-    l_err, l_times, l_bounds = phase_rasterizers()
+    l_err, l_times, l_bounds, l_floors = phase_rasterizers()
     for name in l_times:
-        rows[name] = (l_err, l_times[name], l_bounds[name], None)
-    rows["ohem"] = phase_ohem() + (None,)
+        rows[name] = (l_err, l_times[name], l_bounds[name], None,
+                      {"floor_ms": l_floors[name]})
+    rows["ohem"] = phase_ohem()
     phase_step_card_vs_cpu()
+    phase_step_repeats()
     (_, kitti), (_, malf) = train_cfgs()
     launches["train_kitti"] = phase_train("kitti_vehicle", kitti, 30, False)
     launches["train_malf"] = phase_train("malf_face", malf, 12, True)
@@ -1402,14 +1692,15 @@ def main() -> int:
     print(card, flush=True)
     kernels = []
     for name, src, replaces, run, counter in table:
-        err, (ms, plain_ms), (bound_ms, bound_by), library_ms = rows[counter]
+        (err, (ms, plain_ms), (bound_ms, bound_by), library_ms,
+         more) = rows[counter]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"densebox_tpu_torch/csrc/{src}.cu",
             "replaces": f"densebox_tpu/ops/pallas/{replaces}",
             "launches": launches[run][counter], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
+            "bound_by": bound_by, "library_ms": library_ms, **more})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

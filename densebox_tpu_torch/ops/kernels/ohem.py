@@ -16,7 +16,10 @@ Counts are integers, so the kernel, the plain version and the TPU kernel in
 interpret mode give the same mask bit for bit. Squared errors and noise are
 expected finite and >= 0. On a CUDA tensor the wrapper launches
 ``csrc/ohem.cu`` (built on first use) or raises; on a CPU tensor it runs
-``ohem_select_reference``.
+``ohem_select_reference``. The kernel follows the 40 bisection steps with
+fewer and cheaper counts (levels that need none, one warp finishing on the
+few elements still inside the interval); ``staged_threshold`` is that
+schedule in numpy, which the CPU tests hold to the literal steps.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ launches = 0
 
 BISECT_ITERS = 40
 MAX_P = 16384        # 512 threads x 32 values in registers (csrc/ohem.cu)
+LIST_CAP = 256       # elements one warp finishes a bisection on (csrc/ohem.cu)
 
 
 def reset_launches() -> None:
@@ -57,11 +61,97 @@ def _count_threshold(values: torch.Tensor, cand: torch.Tensor,
     return hi
 
 
-def ohem_select_reference(sq: torch.Tensor, pos: torch.Tensor,
-                          ign: torch.Tensor, rnd: torch.Tensor, ratio: float,
-                          hard_frac: float, min_neg: int) -> torch.Tensor:
-    """Plain version of ``ohem_select``: the same bisections with torch
-    operations over (B, P). Returns the (B, P) bool mask."""
+def staged_threshold(values: np.ndarray, cand: np.ndarray, n_want: int):
+    """One sample's threshold by the schedule of ``csrc/ohem.cu``, in numpy
+    float32: the same sequence of (lo, hi) as ``_count_threshold``'s 40
+    literal steps, with fewer and cheaper counts. (P,) float32 values, (P,)
+    bool cand -> (hi, block_rounds, warp_levels):
+
+      * a set of at most ``n_want`` elements can never count above the
+        quota, so hi halves towards lo 40 times with no count at all; a
+        set of one element is its maximum, which every thread knows: a
+        level is ``lo = mid if x > mid else hi = mid``, no count either;
+      * a mid at or above the set's maximum has nothing above it: hi = mid
+        with no count;
+      * a block-wide round counts one level;
+      * once at most ``LIST_CAP`` elements of the set lie in (lo, hi], one
+        warp finishes the remaining levels on those alone: the elements
+        above hi stay above every further mid (their count is known), those
+        at or below lo stay below. It re-gathers once at most 32 are inside
+        (one a lane, counted by a vote), and with one element x left inside
+        a level is ``lo = mid if x > mid and counting x exceeds the quota
+        else hi = mid``.
+
+    ``block_rounds`` and ``warp_levels`` say how many of each the sample
+    took: its chain of dependent steps on the card."""
+    f32 = np.float32
+    v = np.asarray(values, f32)[np.asarray(cand, bool)]
+
+    def midpoint(lo, hi):
+        return f32(f32(0.5) * f32(lo + hi))
+
+    lo = f32(-1.0)
+    vmax = max(f32(v.max()) if v.size else f32(0.0), f32(0.0))
+    hi = f32(vmax + f32(1.0))
+    if v.size <= n_want or v.size == 1:
+        for _ in range(BISECT_ITERS):
+            mid = midpoint(lo, hi)
+            if v.size > n_want and v[0] > mid:
+                lo = mid
+            else:
+                hi = mid
+        return hi, 0, 0
+    cnt_lo, cnt_hi = v.size, 0      # set elements above lo (a bound) and hi
+    left, rounds = BISECT_ITERS, 0
+    while left > 0 and cnt_lo - cnt_hi > LIST_CAP:
+        mid, left = midpoint(lo, hi), left - 1
+        if mid >= vmax:
+            hi, cnt_hi = mid, 0
+            continue
+        count = int((v > mid).sum())
+        if count > n_want:
+            lo, cnt_lo = mid, count
+        else:
+            hi, cnt_hi = mid, count
+        rounds += 1
+    warp_levels = left
+    # the warp's part: its list, narrowed once to one element a lane
+    for cap in (32, 1):
+        if left == 0:
+            return hi, rounds, warp_levels
+        inside = v[(v > lo) & (v <= hi)]
+        above = int((v > hi).sum())
+        if inside.size > (LIST_CAP if cap == 32 else 32):
+            raise AssertionError("staged_threshold: a list outgrew its bound")
+        n_lo, n_hi = inside.size, 0     # of the list, above lo and above hi
+        while left > 0 and n_lo - n_hi > cap:
+            mid = midpoint(lo, hi)
+            c = int((inside > mid).sum())
+            if above + c > n_want:
+                lo, n_lo = mid, c
+            else:
+                hi, n_hi = mid, c
+            left -= 1
+    last = v[(v > lo) & (v <= hi)]
+    if left > 0 and last.size > 1:
+        raise AssertionError("staged_threshold: more than one element left")
+    x = last[0] if last.size else f32(-np.inf)
+    with_it = int((v > hi).sum()) + 1 > n_want
+    for _ in range(left):
+        mid = midpoint(lo, hi)
+        if x > mid and with_it:
+            lo = mid
+        else:
+            hi = mid
+    return hi, rounds, warp_levels
+
+
+def reference_bisections(sq: torch.Tensor, pos: torch.Tensor,
+                         ign: torch.Tensor, rnd: torch.Tensor, ratio: float,
+                         hard_frac: float, min_neg: int):
+    """The selection with torch operations over (B, P): the (B, P) bool
+    mask and the three bisections it took (hard cutoff, ties, random part),
+    each as (values, set, n_want, threshold)."""
     neg_cand = ~pos & ~ign
     npos = pos.sum(dim=1)
     n_neg = torch.where(npos > 0,
@@ -82,7 +172,18 @@ def ohem_select_reference(sq: torch.Tensor, pos: torch.Tensor,
     rand_cand = neg_cand & ~hard_sel
     t_rand = _count_threshold(rnd, rand_cand, n_rand)
     rand_sel = rand_cand & (rnd > t_rand[:, None])
-    return pos | hard_sel | rand_sel
+    return pos | hard_sel | rand_sel, [
+        (sq, neg_cand, n_hard, t_hard), (rnd, ties, n_hard - n_above, t_tie),
+        (rnd, rand_cand, n_rand, t_rand)]
+
+
+def ohem_select_reference(sq: torch.Tensor, pos: torch.Tensor,
+                          ign: torch.Tensor, rnd: torch.Tensor, ratio: float,
+                          hard_frac: float, min_neg: int) -> torch.Tensor:
+    """Plain version of ``ohem_select``: the same bisections with torch
+    operations over (B, P). Returns the (B, P) bool mask."""
+    return reference_bisections(sq, pos, ign, rnd, ratio, hard_frac,
+                                min_neg)[0]
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,11 +9,18 @@ pyramid scale of the stacked heatmaps,
 
 with origins already clipped by the caller to the selected scale's map
 (``infer/detector.py:decode_landmarks_selected`` clips them), as on the TPU.
+An origin outside [0, Hm - win] x [0, Wm - win] is moved to the nearest one
+inside, by the kernel and by the plain version alike, so that nothing is
+read outside ``maps``.
 Origins of shape (B, D, 1) are shared by every landmark channel (the
 anchor-less decode). The copy is exact in any dtype. On a CUDA tensor the
 wrapper launches ``csrc/window.cu`` (built on first use) or raises; on a CPU
-tensor it runs ``gather_windows_reference``. The TPU kernel's ``dp`` knob
-and its strip-geometry limits are TPU mechanics and have no counterpart.
+tensor it runs ``gather_windows_reference``. The kernel writes window rows
+as 16-byte vectors, realigned in registers from the aligned words that cover
+the source row (``tests/test_torch_kernels.py`` holds that arithmetic, in
+numpy, against the plain version); rows whose bytes are no multiple of 16
+move element by element. The TPU kernel's ``dp`` knob and its
+strip-geometry limits are TPU mechanics and have no counterpart.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from densebox_tpu_torch.ops.kernels import build
 
 # Kernel launches since the last reset; only the launch site adds to it.
 launches = 0
+# Which kernel of csrc/window.cu the last launch ran: "rows" (16-byte vectors,
+# whenever win * element size is a multiple of 16) or "elements".
+last_path = None
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -40,13 +50,16 @@ def gather_windows_reference(maps: torch.Tensor, sel: torch.Tensor,
                              y0: torch.Tensor, x0: torch.Tensor,
                              win: int) -> torch.Tensor:
     """Plain version: one advanced-indexing read of (B, S, L, Hm, Wm)
-    ``maps`` at (B, D) ``sel`` and (B, D, L) or (B, D, 1) origins ->
-    (B, D, L, win, win) in ``maps.dtype``."""
-    b, _, num_lm = maps.shape[:3]
+    ``maps`` at (B, D) ``sel`` and (B, D, L) or (B, D, 1) origins (moved
+    into the map where they lie outside) -> (B, D, L, win, win) in
+    ``maps.dtype``."""
+    b, _, num_lm, hm, wm = maps.shape
     dev = maps.device
     ar = torch.arange(win, device=dev)
-    rows = (y0.long()[..., None] + ar)[..., :, None]     # (B, D, L|1, win, 1)
-    cols = (x0.long()[..., None] + ar)[..., None, :]     # (B, D, L|1, 1, win)
+    y0 = y0.long().clamp(0, hm - win)
+    x0 = x0.long().clamp(0, wm - win)
+    rows = (y0[..., None] + ar)[..., :, None]            # (B, D, L|1, win, 1)
+    cols = (x0[..., None] + ar)[..., None, :]            # (B, D, L|1, 1, win)
     bi = torch.arange(b, device=dev)[:, None, None, None, None]
     si = sel.long()[:, :, None, None, None]
     li = torch.arange(num_lm, device=dev)[None, None, :, None, None]
@@ -59,7 +72,7 @@ def _launcher():
     first use."""
     fn = build.load("window").densebox_gather_windows
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -111,15 +124,17 @@ def gather_windows(maps: torch.Tensor, sel: torch.Tensor, y0: torch.Tensor,
                          "contiguous")
     out = torch.empty((b, d, num_lm, win, win), dtype=maps.dtype,
                       device=maps.device)
+    vector_rows = ctypes.c_int(-1)
     with torch.cuda.device(maps.device):
         rc = _launcher()(
             maps.data_ptr(), sel.data_ptr(), y0.data_ptr(), x0.data_ptr(),
             out.data_ptr(), b, s, num_lm, hm, wm, d, y0.shape[2], win,
-            maps.element_size(),
+            maps.element_size(), ctypes.byref(vector_rows),
             torch.cuda.current_stream(maps.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gather_windows: window kernel launch failed "
                            f"with CUDA error {rc}")
-    global launches
+    global launches, last_path
     launches += 1
+    last_path = "rows" if vector_rows.value == 1 else "elements"
     return out

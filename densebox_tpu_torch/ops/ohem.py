@@ -15,7 +15,11 @@ class-balanced L2 (half the mean over positives, half over negatives).
 
 The selection is ``ops/kernels/ohem.py:ohem_select`` (the CUDA kernel on
 the card, its plain version on the CPU). Its uniform noise is an argument
-here: the caller draws one (B, P) tensor per classification term.
+here: the caller draws one (B, P) tensor per classification term. Each
+term launches the selection on its own: stacking the two terms of a
+landmark step into one (2B, P) launch was timed on an H100 and saves about
+2 us of device time for about 30 us more on the host (the copies that stack
+them).
 """
 
 from __future__ import annotations

@@ -34,12 +34,15 @@ class DetectServer:
     """Request-coalescing wrapper around the port's detect function for a
     ``DenseBox`` or the int8 ``QuantDenseBox``. The model is moved to
     ``device``: the card when none is given (raising without one), the CPU
-    only on ``device="cpu"``."""
+    only on ``device="cpu"``. With ``warmup`` (the default, as in the JAX
+    server) the constructor runs one device call on a zero canvas batch
+    before it returns, so that the first request pays for no kernel build
+    and no cuDNN algorithm search."""
 
     def __init__(self, model, infer_cfg, label_cfg,
                  canvas_hw: Tuple[int, int] = (480, 640),
                  max_batch: int = 8, batch_window_ms: float = 15.0,
-                 device=None):
+                 warmup: bool = True, device=None):
         self.device = resolve_device(device)
         model.to(self.device)
         self.canvas_hw = canvas_hw
@@ -51,8 +54,9 @@ class DetectServer:
         hc, wc = canvas_hw
         self._host = torch.zeros((max_batch, hc, wc, 3), dtype=torch.float32,
                                  pin_memory=self.device.type == "cuda")
-        # warm-up: the first call builds the kernels and sets up cuDNN
-        self._detect(torch.zeros((max_batch, hc, wc, 3), device=self.device))
+        if warmup:
+            self._detect(torch.zeros((max_batch, hc, wc, 3),
+                                     device=self.device))
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._run, daemon=True)

@@ -2,7 +2,9 @@
 
 One ``train_step(state, batch)`` does GT rasterization, the train-mode
 forward, the OHEM loss, backward and the SGD update on the device; the batch
-carries raw patch pixels and padded box tensors only.
+carries raw patch pixels and padded box tensors only. The same step from the
+same parameters, momentum and generator state gives the same result bit for
+bit, on the card too (``repeatable_kernels``).
 
 Optimizer, as the JAX package chains it: clip the gradients by their global
 norm, add ``weight_decay * p``, SGD momentum trace ``t = g + momentum * t``,
@@ -15,7 +17,9 @@ not what ``torch.nn.utils.clip_grad_norm_`` computes, so it is written out.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -56,6 +60,42 @@ class TrainState:
             for k, buf in self.momentum.items():
                 buf.copy_(momentum[k])
         self.step = int(step)
+
+
+# steps inside ``repeatable_kernels`` right now, and the flag's value before
+# the first of them came in
+_pin_lock = threading.Lock()
+_pin_depth = 0
+_pin_saved = False
+
+
+@contextlib.contextmanager
+def repeatable_kernels():
+    """Within it cuDNN takes only algorithms whose result does not depend on
+    the run: some of its backward-filter and backward-data algorithms split
+    a sum over blocks and add the parts with atomics, in the order the
+    blocks happen to finish. Everything else a step runs (the GEMMs, the
+    max-pool and upsample backward, the reductions of the loss and of the
+    norms, the kernels of ``csrc/``) sums in a fixed order already.
+
+    The flag is the process's: the first step to come in saves and sets it,
+    the last one out puts it back, so steps in several threads leave it as
+    they found it. Other cuDNN work of the process (a ``DetectServer``
+    beside the trainer) runs with the pinned algorithms while a step is
+    inside."""
+    global _pin_depth, _pin_saved
+    with _pin_lock:
+        if _pin_depth == 0:
+            _pin_saved = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+        _pin_depth += 1
+    try:
+        yield
+    finally:
+        with _pin_lock:
+            _pin_depth -= 1
+            if _pin_depth == 0:
+                torch.backends.cudnn.deterministic = _pin_saved
 
 
 def learning_rate(cfg: DenseBoxConfig, step: int) -> float:
@@ -162,10 +202,11 @@ def build_train_step(model: DenseBox, cfg: DenseBoxConfig, device,
                            else None)
 
         model.zero_grad(set_to_none=True)
-        out = model(batch["image"], train=True, dropout_keep=keep)
-        loss, metrics = densebox_loss(out, gts, rnd_score, cfg.loss,
-                                      rnd_refined)
-        loss.backward()
+        with repeatable_kernels():
+            out = model(batch["image"], train=True, dropout_keep=keep)
+            loss, metrics = densebox_loss(out, gts, rnd_score, cfg.loss,
+                                          rnd_refined)
+            loss.backward()
         names, params = zip(*model.named_parameters())
         metrics["update_norm"] = sgd_update(
             list(params), [p.grad for p in params],

@@ -39,25 +39,49 @@ Prints one JSON line per probe, after the card's name and power limit:
               paper-width int8 forward (B=2, 240x320) on the host clock with
               its kernel time by kind. Uses only ``qconv_int8`` and ``QuantDenseBox``,
               so the same script times an older tree of the package.
+  determinism which kernels of a train step differ run to run, and what
+              pinning them costs: for each train cell (f32) the same step
+              (same state, batch and generator state) taken three times in
+              each mode: ``unpinned`` (the step's own pinning taken out),
+              ``shipped`` (the step as ``make_train_step`` gives it),
+              ``cudnn_deterministic`` (that flag alone, set from outside) and
+              ``deterministic_algorithms``
+              (``torch.use_deterministic_algorithms(True, warn_only=True)``:
+              its warnings name every operation PyTorch knows to be
+              nondeterministic): the parameters whose gradients differ
+              between runs with the largest difference, whether parameters,
+              momentum and ``update_norm`` repeat bit for bit, and ms/step
+              of each mode over 10 steps, in turns;
+  small_kernels  ``ohem_select`` (B=32, P=3600, errors of the paper model's
+              forward) and ``gather_windows`` (the MALF serve shape, bf16 and
+              f32) by device time (CUDA-graph replay), two readings each.
+              Uses only the two wrappers, so the same script times an older
+              tree of the package;
 ``--only`` takes a comma-separated subset of the groups serve (paper,
 turbo), int8 (turbo_int8, turbo_int8_hybrid), lm (malf_bf16,
-turbo_int8_lm4), train, fused_conv, resize, qconv; the default is all.
+turbo_int8_lm4), train, fused_conv, resize, qconv, determinism,
+small_kernels; the default is all.
 Without a CUDA card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 import time
+import warnings
+from unittest import mock
 
 import numpy as np
 
-from chip_smoke import (QCONV_CASES, TURBO_LAUNCHES, card_line, device_ms,
-                        emit, init_model, init_quant_model, landmark_cells,
-                        median_ms, qconv_inputs, serving_cells, train_cfgs,
-                        with_live_threshold)
+from chip_smoke import (QCONV_CASES, TURBO_LAUNCHES, WINDOW_CASES, card_line,
+                        device_ms, emit, init_model, init_quant_model,
+                        landmark_cells, median_ms, ohem_forward_case,
+                        qconv_inputs, serving_cells, train_cfgs,
+                        window_inputs, with_live_threshold)
 
 CANVAS = (8, 480, 640, 3)
 
@@ -70,7 +94,8 @@ def kernel_kind(name: str) -> str:
             ("int8_conv_kernel", ("qconv_kernel", "qconv_mma_kernel",
                                   "qconv_dp4a_kernel")),
             ("requant_kernel", ("requant_kernel",)),
-            ("window_kernel", ("window_kernel",)),
+            ("window_kernel", ("window_rows_kernel", "window_elem_kernel",
+                               "window_kernel")),
             ("rasterizer_kernel", ("boxes_kernel", "landmarks_kernel")),
             ("ohem_kernel", ("ohem_kernel",)),
             ("optimizer", ("multi_tensor_apply",)),
@@ -298,10 +323,143 @@ def probe_qconv():
     return res
 
 
+def probe_determinism(name, cfg, canvas):
+    """Which gradients of a train step differ run to run, under which
+    pinning they stop, and what each pinning costs."""
+    import torch
+
+    from densebox_tpu_torch import DenseBox
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.train import (create_train_state, loop,
+                                          make_canvas_train_step,
+                                          make_train_step)
+
+    data_label = (dataclasses.replace(cfg.label, patch_size=480) if canvas
+                  else cfg.label)
+    model = DenseBox(cfg.model)
+    state = create_train_state(model, cfg)
+    step = (make_canvas_train_step if canvas else make_train_step)(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = synthetic_batch(gen, cfg.train.batch_size, data_label,
+                            cfg.train.max_boxes, cfg.model.num_landmarks)
+    start = {"params": {k: v.clone() for k, v in model.state_dict().items()},
+             "momentum": {k: v.clone() for k, v in state.momentum.items()},
+             "generator": state.generator.get_state()}
+
+    def rewind():
+        state.load(start["params"], start["momentum"], 0)
+        state.generator.set_state(start["generator"])
+
+    unpinned = mock.patch.object(loop, "repeatable_kernels",
+                                 contextlib.nullcontext)
+
+    @contextlib.contextmanager
+    def cudnn_flag():
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = before
+
+    @contextlib.contextmanager
+    def all_algorithms():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    def mode(name_):
+        stack = contextlib.ExitStack()
+        if name_ != "shipped":
+            stack.enter_context(unpinned)
+        if name_ == "cudnn_deterministic":
+            stack.enter_context(cudnn_flag())
+        if name_ == "deterministic_algorithms":
+            stack.enter_context(all_algorithms())
+        return stack
+
+    modes = ("unpinned", "shipped", "cudnn_deterministic",
+             "deterministic_algorithms")
+    res = {"probe": "determinism", "cell": name,
+           "batch": cfg.train.batch_size, "modes": {}}
+    for m in modes:
+        runs, warned = [], set()
+        with mode(m), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(3):
+                rewind()
+                _, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                runs.append({
+                    "grads": {k: p.grad.clone()
+                              for k, p in model.named_parameters()},
+                    "params": {k: p.detach().clone()
+                               for k, p in model.named_parameters()},
+                    "momentum": {k: v.clone()
+                                 for k, v in state.momentum.items()},
+                    "update_norm": metrics["update_norm"].clone(),
+                    "loss": metrics["loss_total"].clone()})
+            warned = sorted({str(w.message).split(".")[0][:160]
+                             for w in caught})
+        differing = {}
+        for k in runs[0]["grads"]:
+            d = max(float((r["grads"][k] - runs[0]["grads"][k]).abs().max())
+                    for r in runs[1:])
+            if d > 0:
+                differing[k] = d / float(runs[0]["grads"][k].abs().max())
+        same = {key: all(torch.equal(r[key][k], runs[0][key][k])
+                         for r in runs[1:] for k in runs[0][key])
+                for key in ("params", "momentum")}
+        same["update_norm"] = all(torch.equal(r["update_norm"],
+                                              runs[0]["update_norm"])
+                                  for r in runs[1:])
+        same["loss"] = all(torch.equal(r["loss"], runs[0]["loss"])
+                           for r in runs[1:])
+        res["modes"][m] = {
+            "grads_differing_rel_to_max": differing, "bit_equal": same,
+            "update_norms": [float(r["update_norm"]) for r in runs],
+            "warnings": warned}
+    times = {m: [] for m in modes}
+    for _ in range(2):
+        for m in modes:
+            with mode(m), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                rewind()
+                step(state, batch)          # cuDNN settles on its algorithms
+                times[m].append(host_ms(lambda: step(state, batch), 10)[0])
+    res["step_ms_two_readings"] = times
+    return res
+
+
+def probe_small_kernels():
+    """Device time of the OHEM and window-gather kernels at the main path's
+    shapes, through their wrappers alone."""
+    import torch
+
+    from densebox_tpu_torch.ops.kernels.ohem import ohem_select
+    from densebox_tpu_torch.ops.kernels.window import gather_windows
+
+    args = ohem_forward_case(32)
+    res = {"probe": "small_kernels", "timing": "device time: 20 launches "
+           "replayed as a CUDA graph between one pair of events, median of 5",
+           "ohem_B32_P3600": [device_ms(
+               lambda: ohem_select(*args, 1.0, 0.5, 16)) for _ in range(2)]}
+    rng = np.random.RandomState(13)
+    name, *shape, shared = WINDOW_CASES[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        wargs = window_inputs(rng, *shape, shared, dtype) + [shape[-1]]
+        res[f"window_{name}_{str(dtype).split('.')[-1]}"] = [
+            device_ms(lambda: gather_windows(*wargs)) for _ in range(2)]
+    return res
+
+
 # layers of the qconv probe that are also timed at B = 1 .. 32
 SCALED_LAYERS = ("turbo_conv1_2", "turbo_conv3_2", "turbo_conv4_2",
                  "turbo_head_conv1")
-GROUPS = ("serve", "int8", "lm", "train", "fused_conv", "resize", "qconv")
+GROUPS = ("serve", "int8", "lm", "train", "fused_conv", "resize", "qconv",
+          "determinism", "small_kernels")
 
 
 def main(argv=None) -> int:
@@ -317,6 +475,10 @@ def main(argv=None) -> int:
     only = set(args.only.split(","))
     if not only <= set(GROUPS):
         ap.error(f"--only takes a subset of {GROUPS}")
+    # cuBLAS reads it when its handle is made; PyTorch's deterministic mode
+    # asks for it (probe ``determinism``)
+    if "determinism" in only:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("profile_port: torch.cuda.is_available() is false; this "
               "script runs only on a CUDA card", file=sys.stderr)
@@ -356,6 +518,13 @@ def main(argv=None) -> int:
         emit(probe_resize(paper_infer, host))
     if "qconv" in only:
         emit(probe_qconv())
+    if "determinism" in only:
+        for (preset, cfg), cell in zip(train_cfgs(),
+                                       ("train_paper", "train_malf")):
+            emit(probe_determinism(cell, cfg, preset == "malf_face"))
+            torch.cuda.empty_cache()
+    if "small_kernels" in only:
+        emit(probe_small_kernels())
     return 0
 
 

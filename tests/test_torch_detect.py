@@ -13,6 +13,7 @@ import os
 import subprocess
 import sys
 import threading
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ from densebox_tpu.models import DenseBox as JaxDenseBox
 from densebox_tpu_torch.infer import (make_detect_fn, pyramid_shapes,
                                       resize_linear)
 from densebox_tpu_torch.models import DenseBox, from_flax
+from densebox_tpu_torch import serve as serve_module
 from densebox_tpu_torch.serve import DetectServer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,6 +121,39 @@ def test_server_submit_matches_jax(models):
          "scores": want["scores"][:, v]})
 
 
+@pytest.mark.parametrize("warmup", [True, False])
+def test_server_warmup_runs_one_zero_batch_first(models, warmup):
+    """``warmup`` (default on, as in the JAX server) runs one detect on a
+    zero (max_batch, H, W, 3) batch in the constructor; it is no request
+    and no device call of ``stats``, and results do not depend on it."""
+    _, _, port = models
+    calls = []
+    real = serve_module.make_detect_fn
+
+    def counting(*args, **kw):
+        detect = real(*args, **kw)
+
+        def wrapped(batch):
+            calls.append((tuple(batch.shape), float(batch.abs().max())))
+            return detect(batch)
+        return wrapped
+
+    kw = {} if warmup else {"warmup": False}
+    with mock.patch.object(serve_module, "make_detect_fn", counting):
+        server = DetectServer(port, _infer_cfg((1.0,)), LABEL,
+                              canvas_hw=(96, 128), max_batch=2,
+                              batch_window_ms=1.0, device="cpu", **kw)
+    try:
+        assert calls == ([((2, 96, 128, 3), 0.0)] if warmup else [])
+        assert server.stats == {"requests": 0, "device_calls": 0}
+        dets = server.submit(_images(3, b=1, h=80, w=112)[0])
+    finally:
+        server.close()
+    assert len(calls) == (2 if warmup else 1)
+    assert server.stats == {"requests": 1, "device_calls": 1}
+    assert np.isfinite(dets["boxes"]).all() and len(dets["boxes"]) > 0
+
+
 def test_server_coalesces_concurrent_requests(models):
     _, _, port = models
     server = DetectServer(port, _infer_cfg((1.0,)), LABEL,
@@ -154,6 +189,7 @@ import torch
 import chip_smoke, profile_port  # noqa: F401,E401 (module-level imports count)
 from densebox_tpu_torch import InferCfg, LabelCfg, ModelCfg
 from densebox_tpu_torch.models import DenseBox, init_params
+from densebox_tpu_torch import serve as serve_module
 from densebox_tpu_torch.serve import DetectServer
 
 cfg = ModelCfg(width_mult=0.125)

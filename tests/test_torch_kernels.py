@@ -1,6 +1,6 @@
 """The CUDA kernels (greedy NMS, int8 conv, requant epilogue, landmark window
 gather, the two GT rasterizers, OHEM selection) against their plain PyTorch
-versions.
+versions, and a whole train step on the card taken twice.
 
 These tests need a CUDA card (marker ``gpu``) and skip without one. This
 file imports no jax, so on a machine with a card and no JAX they run as
@@ -11,9 +11,13 @@ file imports no jax, so on a machine with a card and no JAX they run as
 here are shared with test_torch_decode_nms.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from densebox_tpu_torch.ops.kernels import labels as klabels
 from densebox_tpu_torch.ops.kernels import nms as knms
@@ -356,6 +360,116 @@ def test_window_kernel_matches_plain_version(cuda, shape, dtype, shared):
     assert torch.equal(got.view(bits), want.view(bits))
 
 
+def window_edge_case(seed, win, shared, dtype, hm=45, wm=53):
+    """Windows on all four edges of an odd-sized map at every column offset
+    modulo 8 from either side, in maps that start one element into their
+    storage (no row starts on a 16-byte boundary by construction). CPU
+    tensors: maps, sel, y0, x0."""
+    rng = np.random.RandomState(seed)
+    b, s, num_lm = 2, 2, 3
+    flat = torch.from_numpy(rng.standard_normal(b * s * num_lm * hm * wm + 1)
+                            .astype(np.float32)).to(dtype)
+    xs = list(range(8)) + [wm - win - k for k in range(8)]
+    ys = [0, hm - win, 1, hm - win - 1]
+    d, lo = len(xs) * len(ys), 1 if shared else num_lm
+    y0 = np.repeat(ys, len(xs))[None, :, None] + np.zeros((b, d, lo), int)
+    x0 = np.tile(xs, len(ys))[None, :, None] + np.zeros((b, d, lo), int)
+    if not shared:
+        x0 = (x0 + np.arange(lo)) % (wm - win + 1)
+    sel = rng.randint(0, s, (b, d))
+    return [flat] + [torch.from_numpy(a.astype(np.int32))
+                     for a in (sel, y0, x0)]
+
+
+def _assert_window_equal(maps, sel, y0, x0, win):
+    before = kwindow.launches
+    got = kwindow.gather_windows(maps, sel, y0, x0, win)
+    torch.cuda.synchronize()
+    assert kwindow.launches == before + 1
+    rows = (win * maps.element_size()) % 16 == 0
+    assert kwindow.last_path == ("rows" if rows else "elements")
+    want = kwindow.gather_windows_reference(maps, sel, y0, x0, win)
+    bits = torch.int16 if maps.dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == maps.dtype and got.shape == want.shape
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("win", [8, 17, 32])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lm", "shared"])
+def test_window_kernel_edges_and_offsets(cuda, dtype, win, shared):
+    flat, sel, y0, x0 = (t.to(cuda) for t in
+                         window_edge_case(win, win, shared, dtype))
+    maps = flat[1:].view(2, 2, 3, 45, 53)
+    assert maps.is_contiguous() and maps.data_ptr() % 16 != 0
+    _assert_window_equal(maps, sel, y0, x0, win)
+
+
+def out_of_range_origins(seed, b, d, lo, hm, wm, win):
+    """int32 origins (B, D, lo) from ``win`` before the map to ``win`` past
+    its last in-range origin, and the same moved to the nearest in-range
+    one."""
+    rng = np.random.RandomState(seed)
+    y0 = rng.randint(-win, hm + 1, (b, d, lo)).astype(np.int32)
+    x0 = rng.randint(-win, wm + 1, (b, d, lo)).astype(np.int32)
+    return (y0, x0), (np.clip(y0, 0, hm - win), np.clip(x0, 0, wm - win))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lm", "shared"])
+def test_window_reference_moves_origins_into_the_map(shared):
+    """An origin outside [0, Hm - win] x [0, Wm - win] gives the window at
+    the nearest origin inside: the plain version reads nothing outside its
+    map, as the kernel."""
+    b, s, num_lm, hm, wm, d, win = 2, 2, 3, 21, 27, 40, 8
+    maps, sel, _, _ = window_case(5, b, s, num_lm, hm, wm, d, win, shared)
+    outside, inside = out_of_range_origins(6, b, d, 1 if shared else num_lm,
+                                           hm, wm, win)
+    assert (outside[0] != inside[0]).any() and (outside[1] != inside[1]).any()
+    maps, sel = torch.from_numpy(maps), torch.from_numpy(sel)
+    got = kwindow.gather_windows(maps, sel, *map(torch.from_numpy, outside),
+                                 win)
+    want = kwindow.gather_windows_reference(
+        maps, sel, *map(torch.from_numpy, inside), win)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("win", [8, 17])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lm", "shared"])
+def test_window_kernel_out_of_range_origins(cuda, dtype, win, shared):
+    """Both kernels (16-byte rows at win 8, elements at win 17) move an
+    out-of-range origin into the map as the plain version does."""
+    b, s, num_lm, hm, wm, d = 2, 2, 3, 37, 45, 50
+    maps, sel, _, _ = window_case(win, b, s, num_lm, hm, wm, d, win, shared)
+    outside, _ = out_of_range_origins(win, b, d, 1 if shared else num_lm,
+                                      hm, wm, win)
+    _assert_window_equal(torch.from_numpy(maps).to(cuda, dtype),
+                         *(torch.from_numpy(a).to(cuda)
+                           for a in (sel, *outside)), win)
+
+
+@pytest.mark.gpu
+@settings(max_examples=30, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(b=st.integers(1, 4), s=st.integers(1, 3), num_lm=st.integers(1, 6),
+       hm=st.integers(8, 70), half_wm=st.integers(4, 40),
+       d=st.integers(1, 40), win=st.integers(1, 40), shared=st.booleans(),
+       bf16=st.booleans(), seed=st.integers(0, 2 ** 16))
+def test_window_kernel_random_shapes(cuda, b, s, num_lm, hm, half_wm, d, win,
+                                     shared, bf16, seed):
+    wm = 2 * half_wm + 1                       # odd map widths
+    win = min(win, hm, wm)
+    maps, sel, y0, x0 = window_case(seed, b, s, num_lm, hm, wm, d, win, shared)
+    maps = torch.from_numpy(maps).to(cuda, torch.bfloat16 if bf16
+                                     else torch.float32)
+    _assert_window_equal(maps, *(torch.from_numpy(a).to(cuda)
+                                 for a in (sel, y0, x0)), win)
+
+
 @pytest.mark.gpu
 def test_window_wrapper_checks(cuda):
     maps = torch.zeros(2, 1, 3, 20, 24, device=cuda)
@@ -381,6 +495,83 @@ def test_window_wrapper_refuses_other_devices():
     org = torch.zeros(1, 3, 1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         kwindow.gather_windows(maps, sel, org, org, 4)
+
+
+def covering_vector(storage, addr):
+    """The 16 bytes of ``storage`` (uint8, its length a multiple of 16) at
+    byte ``addr``, as ``csrc/window.cu`` gets them: the aligned 16-byte word
+    that holds the first byte and, only if ``addr`` is off a boundary, the
+    next one; the two joined by a whole-word select and a funnel shift."""
+    shift = addr & 15
+    words = storage[addr - shift:addr - shift + 16].view(np.uint32)
+    nxt = (storage[addr - shift + 16:addr - shift + 32].view(np.uint32)
+           if shift else np.zeros(4, np.uint32))
+    w = np.concatenate([words, nxt]).astype(np.uint64)
+    skip, bits = shift >> 2, np.uint64((shift & 3) * 8)
+    t = w[skip:skip + 5]
+    out = ((t[1:] << np.uint64(32) | t[:-1]) >> bits) & np.uint64(0xffffffff)
+    return out.astype(np.uint32).view(np.uint8)
+
+
+def gather_rows_model(maps, sel, y0, x0, win, base_offset):
+    """``gather_windows`` as the row kernel computes it, on the bytes of
+    ``maps`` (a torch tensor) laid out ``base_offset`` bytes into 16-byte
+    aligned storage. Rows whose bytes are no multiple of 16 move element by
+    element, as in the kernel. Returns the output's bytes."""
+    esz = maps.element_size()
+    raw = maps.contiguous().view(torch.uint8).numpy().reshape(-1)
+    storage = np.zeros(-(-(base_offset + raw.size) // 16) * 16, np.uint8)
+    storage[base_offset:base_offset + raw.size] = raw
+    b, s, num_lm, hm, wm = maps.shape
+    d, lo = sel.shape[1], y0.shape[2]
+    row_bytes = win * esz
+    out = np.zeros((b, d, num_lm, win, row_bytes), np.uint8)
+    for bi in range(b):
+        for di in range(d):
+            for l in range(num_lm):
+                oy = int(y0[bi, di, l if lo > 1 else 0])
+                ox = int(x0[bi, di, l if lo > 1 else 0])
+                plane = ((bi * s + int(sel[bi, di])) * num_lm + l) * hm
+                for r in range(win):
+                    src = base_offset + ((plane + oy + r) * wm + ox) * esz
+                    if row_bytes % 16:
+                        out[bi, di, l, r] = storage[src:src + row_bytes]
+                        continue
+                    for k in range(row_bytes // 16):
+                        out[bi, di, l, r, 16 * k:16 * k + 16] = \
+                            covering_vector(storage, src + 16 * k)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("win", [8, 17, 32])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lm", "shared"])
+def test_realigned_row_copy_equals_plain_version(dtype, win, shared):
+    """What the row kernel relies on: aligned covering words, shifted
+    together, give the plain version's window bit for bit, for every column
+    offset modulo 8 (bf16) and 4 (f32) from either edge, windows on all four
+    edges of an odd-sized map, and a map that starts off a 16-byte boundary;
+    34- and 68-byte rows (win 17) take the element copy."""
+    rng = np.random.RandomState(win)
+    b, s, num_lm, hm, wm = 1, 2, 2, 37, 45
+    maps = torch.from_numpy(rng.standard_normal((b, s, num_lm, hm, wm))
+                            .astype(np.float32)).to(dtype)
+    xs = list(range(8)) + [wm - win - k for k in range(8)]
+    ys = [0, hm - win, 1, hm - win - 1]
+    d, lo = len(xs) * len(ys), 1 if shared else num_lm
+    y0 = np.repeat(ys, len(xs))[None, :, None] + np.zeros((b, d, lo), int)
+    x0 = np.tile(xs, len(ys))[None, :, None] + np.zeros((b, d, lo), int)
+    if not shared:
+        x0 = (x0 + 3 * np.arange(lo)) % (wm - win + 1)
+    sel = rng.randint(0, s, (b, d))
+    idx = [torch.from_numpy(a.astype(np.int32)) for a in (sel, y0, x0)]
+    want = kwindow.gather_windows_reference(maps, *idx, win)
+    want = want.contiguous().view(torch.uint8).numpy().reshape(
+        b, d, num_lm, win, -1)
+    for base_offset in (0, maps.element_size()):
+        got = gather_rows_model(maps, sel, y0, x0, win, base_offset)
+        np.testing.assert_array_equal(got, want)
 
 
 def label_rows(seed, b, k, m, num_lm):
@@ -505,6 +696,57 @@ def test_ohem_kernel_matches_plain_version(cuda, kind, bp):
         *args, float(np.float32(2.5)), float(np.float32(0.3)), 7))
 
 
+def ohem_edge_case(seed, p, min_neg):
+    """One sample per row, no positives (the quota is ``min_neg``, half of
+    it hard), with a candidate set that is empty, one pixel, as large as
+    either quota and one more, around the 32 and 256 elements the kernel's
+    warp re-gathers at, and the whole sample; the second half of the rows
+    with errors on a grid of halves (ties at every cutoff)."""
+    rng = np.random.RandomState(seed)
+    half = min_neg // 2
+    sizes = sorted({0, 1, half, half + 1, min_neg, min_neg + 1, 31, 32, 33,
+                    255, 256, 257, 300, p - 1, p} & set(range(p + 1)))
+    b = 2 * len(sizes)
+    sq = rng.uniform(0, 2, (b, p)).astype(np.float32) ** 2
+    sq[len(sizes):] = np.round(sq[len(sizes):] * 2) / 2
+    ign = np.ones((b, p), bool)
+    for i, n in enumerate(sizes * 2):
+        ign[i, rng.permutation(p)[:n]] = False
+    return sq, np.zeros((b, p), bool), ign, rng.rand(b, p).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("min_neg", [0, 1, 16])
+@pytest.mark.parametrize("p", [300, 3600])
+def test_ohem_kernel_edge_sets(cuda, p, min_neg):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in ohem_edge_case(p + min_neg, p, min_neg)]
+    got = kohem.ohem_select(*args, 1.0, 0.5, min_neg)
+    torch.cuda.synchronize()
+    want = kohem.ohem_select_reference(*args, 1.0, 0.5, min_neg)
+    assert torch.equal(got, want)
+    assert int(got.sum(1).max()) == min(min_neg, p)
+
+
+@pytest.mark.gpu
+@settings(max_examples=40, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(b=st.integers(1, 64), p=st.integers(1, 16384),
+       kind=st.sampled_from(["random", "tied", "no_pos", "short", "levels"]),
+       ratio=st.sampled_from([1.0, 2.5, 0.3]),
+       hard_frac=st.sampled_from([0.5, 0.3, 1.0, 0.0]),
+       min_neg=st.integers(0, 40), seed=st.integers(0, 2 ** 16))
+def test_ohem_kernel_random_shapes(cuda, b, p, kind, ratio, hard_frac,
+                                   min_neg, seed):
+    b = min(b, max(1, 2 ** 18 // p))           # keeps the plain version short
+    args = [torch.from_numpy(a).to(cuda) for a in ohem_case(seed, b, p, kind)]
+    got = kohem.ohem_select(*args, ratio, hard_frac, min_neg)
+    torch.cuda.synchronize()
+    want = kohem.ohem_select_reference(
+        *args, float(np.float32(ratio)), float(np.float32(hard_frac)), min_neg)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 def test_ohem_wrapper_checks(cuda):
     sq = torch.zeros(2, 64, device=cuda)
@@ -529,3 +771,55 @@ def test_ohem_wrapper_refuses_other_devices():
     sq = torch.zeros(1, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         kohem.ohem_select(sq, sq > 0, sq > 0, sq, 1.0, 0.5, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["kitti_vehicle", "malf_face"])
+def test_train_step_repeats_on_the_card(cuda, preset):
+    """A whole train step on the card (rasterizer and OHEM kernels, cuDNN
+    forward and backward, the SGD update), taken twice from the same
+    parameters, momentum and generator state: the same parameters, momentum,
+    loss and update norm bit for bit. malf_face goes through the canvas
+    step (patches sampled on the card, landmarks, refine, two OHEM terms)."""
+    import densebox_tpu_torch as port
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.train import (create_train_state,
+                                          make_canvas_train_step,
+                                          make_train_step)
+
+    cfg = getattr(port, preset)()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, width_mult=0.25),
+        train=dataclasses.replace(cfg.train, batch_size=8))
+    canvas = preset == "malf_face"
+    label = (dataclasses.replace(cfg.label, patch_size=480) if canvas
+             else cfg.label)
+    model = port.DenseBox(cfg.model, device=cuda)
+    state = create_train_state(model, cfg, device=cuda)
+    step = (make_canvas_train_step if canvas else make_train_step)(
+        model, cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    batch = synthetic_batch(gen, 8, label, cfg.train.max_boxes,
+                            cfg.model.num_landmarks, device=cuda)
+    step(state, batch)                          # a state with momentum
+    start = ({k: v.clone() for k, v in model.state_dict().items()},
+             {k: v.clone() for k, v in state.momentum.items()},
+             state.generator.get_state())
+    before = (klabels.launches["rasterize_boxes"], kohem.launches)
+    runs = []
+    for _ in range(2):
+        state.load(start[0], start[1], 1)
+        state.generator.set_state(start[2])
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        runs.append(({k: v.clone() for k, v in model.state_dict().items()},
+                     {k: v.clone() for k, v in state.momentum.items()},
+                     {k: v.clone() for k, v in metrics.items()}))
+    assert klabels.launches["rasterize_boxes"] == before[0] + 2
+    assert kohem.launches == before[1] + (4 if canvas else 2)
+    for first, second in zip(runs[0], runs[1]):
+        assert first.keys() == second.keys()
+        for k in first:
+            assert torch.equal(first[k], second[k]), k
+    assert all(bool(torch.isfinite(v)) for v in runs[0][2].values())
+    assert any(not torch.equal(v, start[0][k]) for k, v in runs[0][0].items())

@@ -42,6 +42,7 @@ from densebox_tpu_torch.models import (DenseBox, QuantDenseBox,
 from densebox_tpu_torch.ops.kernels.ohem import ohem_select
 from densebox_tpu_torch.ops.labels import rasterize
 from densebox_tpu_torch.serve import DetectServer
+from densebox_tpu_torch.train.loop import repeatable_kernels
 from densebox_tpu_torch.train import (create_train_state, learning_rate,
                                       make_canvas_train_step, make_train_step,
                                       sgd_update)
@@ -348,6 +349,85 @@ def test_loss_decreases_over_50_steps(landmarks, refine, canvas):
     assert steps == 50 and moved > 0 and np.isfinite(losses).all()
     assert np.mean(losses[-10:]) < 0.6 * np.mean(losses[:10]), losses
     assert run()[0] == losses
+
+
+@pytest.mark.parametrize("landmarks,refine,canvas",
+                         [(0, False, False), (4, True, True)],
+                         ids=["patches", "canvas_lm_refine"])
+def test_step_repeats_and_pins_cudnn_only_inside(landmarks, refine, canvas):
+    """The same step from the same parameters, momentum and generator state
+    gives the same parameters, momentum and metrics bit for bit (on the
+    card this is what ``repeatable_kernels`` is for: chip_smoke.py phase 19
+    and the GPU test hold it there). The cuDNN flag is set while the model
+    runs forward and backward, and is put back after the step."""
+    cfg, _ = _cfgs(landmarks, refine)
+    if refine:
+        cfg = dataclasses.replace(cfg, label=dataclasses.replace(
+            cfg.label, lm_flip_perm=(1, 0, 3, 2)))
+    data_label = (dataclasses.replace(cfg.label, patch_size=96)
+                  if canvas else cfg.label)
+    model = DenseBox(cfg.model, device="cpu")
+    state = create_train_state(model, cfg, device="cpu")
+    step = (make_canvas_train_step if canvas else make_train_step)(
+        model, cfg, device="cpu")
+    batch = synthetic_batch(torch.Generator().manual_seed(1), 4, data_label,
+                            max_boxes=3, num_landmarks=landmarks, device="cpu")
+    step(state, batch)
+    start = ({k: v.clone() for k, v in model.state_dict().items()},
+             {k: v.clone() for k, v in state.momentum.items()},
+             state.generator.get_state())
+    seen = []
+    forward = model.forward
+
+    def watching(*args, **kw):
+        seen.append(torch.backends.cudnn.deterministic)
+        return forward(*args, **kw)
+
+    runs = []
+    assert torch.backends.cudnn.deterministic is False
+    with mock.patch.object(model, "forward", watching):
+        for _ in range(2):
+            state.load(start[0], start[1], 1)
+            state.generator.set_state(start[2])
+            _, metrics = step(state, batch)
+            runs.append(({k: v.clone() for k, v in model.state_dict().items()},
+                         {k: v.clone() for k, v in state.momentum.items()},
+                         dict(metrics)))
+    assert seen == [True, True]
+    assert torch.backends.cudnn.deterministic is False
+    for first, second in zip(runs[0], runs[1]):
+        for k in first:
+            assert torch.equal(first[k], second[k]), k
+    with pytest.raises(ZeroDivisionError), repeatable_kernels():
+        1 / 0
+    assert torch.backends.cudnn.deterministic is False
+
+
+def test_repeatable_kernels_overlapping_in_two_threads():
+    """Two steps inside at once, leaving in the order they came in: the
+    flag stays set until the last is out and ends as it was found."""
+    import threading
+
+    inside, leave = threading.Event(), threading.Event()
+    seen = []
+
+    def other():
+        with repeatable_kernels():
+            inside.set()
+            leave.wait(10)
+        seen.append(torch.backends.cudnn.deterministic)
+
+    assert torch.backends.cudnn.deterministic is False
+    with repeatable_kernels():
+        thread = threading.Thread(target=other)
+        thread.start()
+        assert inside.wait(10)
+    # the first one in is out, the second still inside
+    assert torch.backends.cudnn.deterministic is True
+    leave.set()
+    thread.join(10)
+    assert seen == [False]
+    assert torch.backends.cudnn.deterministic is False
 
 
 def test_entry_points_default_to_the_card():
