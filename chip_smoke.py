@@ -32,7 +32,10 @@ not 0):
      same values through a bf16 ``F.conv2d``, and their sum over the 14
      launches of a device call;
   9. requant kernel against its plain version (B=8, 120x160x64, int8 and
-     f32 outputs): identical; median times;
+     f32 outputs): identical; median times; then, on a line of its own, its
+     device time at the accumulator of every conv of a hybrid device call
+     of the turbo model beside that shape's bound, and their sums over the
+     call's 14 launches;
  10. the paper model in int8, calibrated on the card: its forward on the
      card against the plain versions on the CPU with the same int8 state
      (B=2, 240x320): every int8 code and map identical; the fused and the
@@ -65,13 +68,19 @@ not 0):
  16. serve the bench's landmark pipeline in int8: the turbo trunk with 4
      landmarks and refine, no anchors (shared origins), calibrated on the
      card, one scale: as phase 15, plus one int8 conv launch per conv;
- 17. both GT rasterizer kernels against their plain versions on the card,
-     bitwise: packed rows at the training shape (B=32, K=16, M=60, L=5; out
-     of band and invalid slots, an empty patch, coincident and equidistant
-     centres, rim-exact discs) and a ragged one (B=3, K=1, M=8, L=1), then
-     px boxes through ``rasterize`` on the card against the CPU; event and
-     device times at the training shape beside an empty launch of each
-     kernel's grid;
+ 17. both GT rasterizer kernels, each alone and the two as one launch,
+     against their plain versions on the card, bitwise: packed rows at the
+     training shape (B=32, K=16, M=60, L=5; out of band and invalid slots,
+     an empty patch, coincident and equidistant centres, rim-exact discs), a
+     ragged one (B=3, K=1, M=8, L=1), the training shape with every centre
+     and radius on the quarter-pixel grid and landmark radii other than 1,
+     with every slot invalid, 125 x 125 maps with K = 1024 box rows and with
+     K * L = 1024 landmark rows, and a landmark centre at every quarter
+     pixel across each edge of a block's chunk of the output, inside and
+     outside the map; then px boxes through ``rasterize`` on the card
+     against the CPU; event and device times at the training shape beside
+     an empty launch of each kernel's grid, and two launches against one
+     for a step's two maps;
  18. OHEM kernel against its plain version on the card, bitwise, at B=32,
      P=3600: random errors, all negatives tied, no positives, fewer
      candidates than the quota, the errors of a real forward, and candidate
@@ -100,7 +109,19 @@ not 0):
  21. train malf_face() at full width (5 landmarks, refine) through
      make_canvas_train_step: 480 px canvases, 240 px patches sampled on the
      card with flips, B=32, 2 + 12 steps: as phase 20, with 1 + 1 rasterizer
-     launches and 2 OHEM launches per step.
+     launches (one launch for the two maps) and 2 OHEM launches per step;
+ 22. ``fit`` on kitti_vehicle() at full width, B=32, 240 px, on the card by
+     default, a step-keyed stream of synthetic batches, a temporary workdir
+     (log every 4, checkpoint every 2, keep 2): 8 steps straight against 4
+     steps, a restart from the checkpoint into a new model, and 4 more:
+     parameters, momentum, loss and update norm bit-equal; the same restart
+     with ``run_salt=1`` differs; two checkpoint files are left;
+     ``load_for_inference`` of the last one gives a model whose
+     ``detect_batch`` equals the trained model's; one box-rasterizer and
+     one OHEM launch per step; ms/step through ``fit`` with those
+     boundaries (set-up included) and without a workdir from a state made
+     beforehand, the set-up's and one checkpoint write's time, beside the
+     card.
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
 lists the seven kernels (with the least time the card could take for the
@@ -574,6 +595,40 @@ def phase_requant():
     if not all(r["equal"] for r in results.values()):
         raise AssertionError(f"requant kernel disagrees with its plain "
                              f"version: {results}")
+    # every launch of a hybrid device call of the turbo model (B=8): the
+    # accumulator of each conv in the mode the model runs the layer in, its
+    # device time beside its bound (int32 in, int8 or f32 out, three float
+    # vectors; five float operations an element), and their sums
+    layers = {}
+    for name, b, h, w, _, cout, _ in QCONV_CASES:
+        if name not in TURBO_LAUNCHES:
+            continue
+        la = torch.from_numpy(rng.randint(-2 ** 20, 2 ** 20, (b, h, w, cout))
+                              .astype(np.int32)).cuda()
+        vecs = [torch.from_numpy(rng.uniform(lo, hi, cout).astype(np.float32))
+                .cuda() for lo, hi in ((1e-6, 3e-6), (-0.5, 0.5), (20, 40))]
+        f32_out = cout <= 4                      # the heads' conv2
+        args = (la, vecs[0], vecs[1], None if f32_out else vecs[2])
+        kw = dict(relu=not f32_out)
+        if not torch.equal(kr.requant_epilogue(*args, **kw),
+                           kr.requant_reference(*args, **kw)):
+            raise AssertionError(f"requant kernel disagrees with its plain "
+                                 f"version at {name}")
+        bnd = bound(la.numel() * (4 + (4 if f32_out else 1)) + 12 * cout,
+                    la.numel() * 5)
+        layers[name] = {
+            "shape": list(la.shape), "mode": "f32" if f32_out else "int8",
+            "kernel_ms": device_ms(lambda: kr.requant_epilogue(*args, **kw)),
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "launches_per_call": TURBO_LAUNCHES[name]}
+    per_call = {key: sum(v[key] * v["launches_per_call"]
+                         for v in layers.values())
+                for key in ("kernel_ms", "bound_ms")}
+    per_call["share_of_bound"] = per_call["bound_ms"] / per_call["kernel_ms"]
+    emit({"phase": "requant_turbo_layers", "batch": 8,
+          "timing": "device time: 20 launches replayed as a CUDA graph "
+                    "between one pair of events, median of 5",
+          "layers": layers, "per_hybrid_call_14_launches": per_call})
     # int32 in, int8 out, three float vectors; five float operations each
     return err, times["int8"], bound(acc.numel() * 5 + 12 * 64,
                                      acc.numel() * 5)
@@ -1063,19 +1118,26 @@ def bound(nbytes: float, ops: float, kind: str = "f32"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def label_rows(rng, b, k, m, num_lm):
+LM_R2 = (0.0, 0.25, 1.0, 2.25, 6.25)     # squared radii of the edge cases
+
+
+def label_rows(rng, b, k, m, num_lm, quarter=False):
     """Packed rasterizer rows: box rows (B, K, 8) = [cx, cy, rc2, rg2, x1,
     y1, x2, y2] and landmark rows (B, K*L, 3) = [lx, ly, r2], float32. Half
     the centres and radii are integers, so that pixels lie exactly on a
     disc's rim (d2 == rc2); a quarter of the slots are never positive (out
     of band), an eighth never gray either (invalid); patch 0 is empty; patch
     1 holds two boxes with one centre and two whose centres are equidistant
-    from a column of pixels."""
+    from a column of pixels. With ``quarter`` every centre and radius lies
+    on the quarter-pixel grid (rims everywhere) and the landmarks' squared
+    radii come from ``LM_R2``."""
     c = rng.uniform(0, m, (b, k, 2))
     r = rng.uniform(0.5, m / 4, (b, k))
     integer = rng.rand(b, k) < 0.5
     c = np.where(integer[..., None], np.round(c), c)
     r = np.where(integer, np.maximum(np.round(r), 1), r)
+    if quarter:
+        c, r = np.round(c * 4) / 4, np.maximum(np.round(r * 4) / 4, 0.25)
     kind = rng.rand(b, k)
     rc2 = np.where(kind < 0.25, -1.0, r * r)
     rg2 = np.where(kind < 0.125, -1.0, (r + 2) ** 2)
@@ -1089,11 +1151,32 @@ def label_rows(rng, b, k, m, num_lm):
         rows[1, 1, :4] = rows[1, 0, :4]
         rows[1, 2, :4] = [2.0, 3.0, 16.0, 36.0]
         rows[1, 3, :4] = [6.0, 3.0, 16.0, 36.0]
-    lm = np.concatenate([rng.uniform(-2, m + 2, (b, k * num_lm, 2)),
-                         np.where(rng.rand(b, k * num_lm, 1) < 0.3, -1.0, 1.0)],
-                        -1)
+    n = k * num_lm
+    r2 = (rng.choice(LM_R2, (b, n, 1)) if quarter else np.ones((b, n, 1)))
+    lm = np.concatenate([rng.uniform(-2, m + 2, (b, n, 2)),
+                         np.where(rng.rand(b, n, 1) < 0.3, -1.0, r2)], -1)
     lm[:, ::2, :2] = np.round(lm[:, ::2, :2])      # rim-exact: d2 == 1
+    if quarter:
+        lm[..., :2] = np.round(lm[..., :2] * 4) / 4
     return rows.astype(np.float32), lm.astype(np.float32)
+
+
+def landmark_edge_rows(m, num_lm, k, chunk):
+    """Landmark rows (B, K*L, 3) that put a centre at every quarter pixel
+    from 3 above to 3 below each map row where a block's chunk of ``chunk``
+    output floats ends, at columns inside, on the rim of and outside the
+    map, with every squared radius of ``LM_R2``."""
+    row_len = m * num_lm
+    edges = sorted({e // row_len for e in range(chunk, m * row_len, chunk)}
+                   | {0, m - 1})
+    xs = (-2.0, -0.25, 0.0, 0.25, m / 2 + 0.5, m - 1.0, m - 0.75, m + 2.0)
+    rows = [(x, e + q / 4, r2) for e in edges for q in range(-12, 13)
+            for r2 in LM_R2 for x in xs]
+    per = k * num_lm
+    b = -(-len(rows) // per)
+    out = np.full((b * per, 3), -1.0, np.float32)
+    out[:len(rows)] = rows
+    return out.reshape(b, per, 3)
 
 
 def bits_equal(a, b) -> bool:
@@ -1103,9 +1186,19 @@ def bits_equal(a, b) -> bool:
                                                    b.view(torch.int32)))
 
 
+# (case, B, K, M, L): the training shape, a ragged one, the training shape
+# on the quarter-pixel grid, with every slot invalid, and maps whose size is
+# no multiple of 4 with as many rows as a patch may have (K = 1024 boxes:
+# four staging passes; K * L = 1024 landmark rows)
+RASTER_CASES = [("train", 32, 16, 60, 5), ("ragged", 3, 1, 8, 1),
+                ("quarter_grid", 32, 16, 60, 5), ("all_invalid", 32, 16, 60, 5),
+                ("m125_k1024", 2, 1024, 125, 1), ("m125_kl1024", 2, 256, 125, 4)]
+
+
 def phase_rasterizers():
-    """Phase 17: both rasterizer kernels against their plain versions on the
-    card, bitwise, and the whole ``rasterize`` on the card against the CPU."""
+    """Phase 17: both rasterizer kernels, each alone and the two in one
+    launch, against their plain versions on the card, bitwise, and the whole
+    ``rasterize`` on the card against the CPU."""
     import torch
 
     from densebox_tpu_torch import LabelCfg
@@ -1114,29 +1207,55 @@ def phase_rasterizers():
 
     rng = np.random.RandomState(17)
     inv = float(np.float32(1.0 / LabelCfg().loc_norm))
+    names = ("score", "loc", "ignore", "lm")
     results, full = [], None
-    for b, k, m, num_lm in ((32, 16, 60, 5), (3, 1, 8, 1)):
-        rows, lm_rows = (torch.from_numpy(a).cuda()
-                         for a in label_rows(rng, b, k, m, num_lm))
+
+    def check(case, rows, lm_rows, m, num_lm):
         got = kl.rasterize_boxes(rows, m, inv) + (
             kl.rasterize_landmarks(lm_rows, m, num_lm),)
+        both = kl.rasterize_maps(rows, lm_rows, m, inv, num_lm)
         want = kl.rasterize_boxes_reference(rows, m, inv) + (
             kl.rasterize_landmarks_reference(lm_rows, m, num_lm),)
         torch.cuda.synchronize()
-        same = {n: bits_equal(g, w) for n, g, w in
-                zip(("score", "loc", "ignore", "lm"), got, want)}
-        results.append({"case": "rows", "shape": [b, k, m, num_lm],
+        same = {n: bits_equal(g, w) for n, g, w in zip(names, got, want)}
+        same_both = {n: bits_equal(g, w) for n, g, w in zip(names, both, want)}
+        results.append({"case": case,
+                        "shape": [rows.shape[0], rows.shape[1], m, num_lm],
                         "bitwise_equal": same,
+                        "one_launch_bitwise_equal": same_both,
                         "positives": int(got[0].sum()),
                         "gray": int(got[2].sum()), "lm_pixels": int(got[3].sum()),
                         "max_abs_err": max(float((g - w).abs().max())
-                                           for g, w in zip(got, want))})
-        if not all(same.values()) or (b == 32 and not got[0].sum() > 0):
+                                           for g, w in zip(got + both,
+                                                           want + want))})
+        if not all(same.values()) or not all(same_both.values()):
             emit({"phase": "rasterizer_kernels", "results": results})
             raise AssertionError(f"a rasterizer kernel disagrees with its "
                                  f"plain version: {results[-1]}")
-        if b == 32:
+        return got
+
+    for case, b, k, m, num_lm in RASTER_CASES:
+        rows, lm_rows = label_rows(rng, b, k, m, num_lm,
+                                   quarter=case == "quarter_grid")
+        if case == "all_invalid":
+            rows[..., 2:4] = -1.0
+            lm_rows[..., 2] = -1.0
+        rows, lm_rows = torch.from_numpy(rows).cuda(), torch.from_numpy(lm_rows).cuda()
+        got = check(case, rows, lm_rows, m, num_lm)
+        if case == "train":
             full = (rows, lm_rows, m, num_lm)
+            if not got[0].sum() > 0 or not got[3].sum() > 0:
+                raise AssertionError("the training-shape case drew no "
+                                     "positive pixel")
+        if case == "all_invalid" and any(float(g.abs().sum()) for g in got):
+            raise AssertionError("all-invalid rows gave a non-zero map")
+    # landmark centres at every quarter pixel across the chunks' edges
+    b, k, m, num_lm = RASTER_CASES[0][1:]
+    chunk, chunks = kl.landmark_chunk(m, num_lm, b)
+    edge = torch.from_numpy(landmark_edge_rows(m, num_lm, k, chunk)).cuda()
+    box_rows = torch.from_numpy(label_rows(rng, len(edge), k, m, num_lm,
+                                           quarter=True)[0]).cuda()
+    check("landmarks_on_chunk_edges", box_rows, edge, m, num_lm)
     # px boxes through pack + kernels on the card against the CPU
     cfg = LabelCfg()
     bx = rng.uniform(20, 220, (32, 16, 2))
@@ -1156,42 +1275,69 @@ def phase_rasterizers():
                     "bitwise_equal": same,
                     "positives": int(on_cpu["score"].sum())})
     rows, lm_rows, m, num_lm = full
+    calls = {
+        "rasterize_boxes": lambda: kl.rasterize_boxes(rows, m, inv),
+        "rasterize_landmarks": lambda: kl.rasterize_landmarks(lm_rows, m,
+                                                              num_lm),
+        "rasterize_maps": lambda: kl.rasterize_maps(rows, lm_rows, m, inv,
+                                                    num_lm)}
     times = {
         "rasterize_boxes": (
-            median_ms(lambda: kl.rasterize_boxes(rows, m, inv), 50),
+            median_ms(calls["rasterize_boxes"], 50),
             median_ms(lambda: kl.rasterize_boxes_reference(rows, m, inv), 7)),
         "rasterize_landmarks": (
-            median_ms(lambda: kl.rasterize_landmarks(lm_rows, m, num_lm), 50),
+            median_ms(calls["rasterize_landmarks"], 50),
             median_ms(lambda: kl.rasterize_landmarks_reference(
                 lm_rows, m, num_lm), 7))}
     err = max(r.get("max_abs_err", 0.0) for r in results)
     b, k = rows.shape[:2]
-    device = {
-        "rasterize_boxes": device_ms(lambda: kl.rasterize_boxes(rows, m, inv)),
-        "rasterize_landmarks": device_ms(
-            lambda: kl.rasterize_landmarks(lm_rows, m, num_lm))}
+    device = {n: device_ms(fn) for n, fn in calls.items()}
     # an empty kernel of each rasterizer's grid and block (csrc/labels.cu:
-    # 256 threads, a thread per pixel or per (pixel, channel), batch in y)
+    # 256 threads; boxes: tiles of 32 x 8 pixels, batch in y; landmarks:
+    # the chunks of a patch's output, batch in y; both maps: the wider of
+    # the two grids twice)
+    box_blocks = -(-m // 32) * -(-m // 8)
     floors = {
-        "rasterize_boxes": empty_launch_ms(-(-m * m // 256), b, 256),
-        "rasterize_landmarks": empty_launch_ms(-(-m * m * num_lm // 256), b,
-                                               256)}
+        "rasterize_boxes": empty_launch_ms(box_blocks, b, 256),
+        "rasterize_landmarks": empty_launch_ms(chunks, b, 256),
+        "rasterize_maps": empty_launch_ms(2 * max(box_blocks, chunks), b, 256)}
+
+    def both_launches():
+        calls["rasterize_boxes"]()
+        calls["rasterize_landmarks"]()
+
+    # what a malf step pays for its two maps: two launches, or one
+    two_maps = {"two_launches": {"device_ms": device_ms(both_launches),
+                                 "event_ms": median_ms(both_launches, 50)},
+                "one_launch": {"device_ms": device["rasterize_maps"],
+                               "event_ms": median_ms(calls["rasterize_maps"],
+                                                     50)}}
     emit({"phase": "rasterizer_kernels", "results": results,
           "max_abs_err": err,
           "median_ms": {n: {"kernel": t[0], "plain": t[1]}
                         for n, t in times.items()},
-          "device_ms": device, "empty_launch_ms_same_grid": floors})
+          "device_ms": device, "empty_launch_ms_same_grid": floors,
+          "grids": {"rasterize_boxes": [box_blocks, b],
+                    "rasterize_landmarks": [chunks, b],
+                    "landmark_chunk_floats": chunk},
+          "two_maps": two_maps})
     if not all(same.values()):
         raise AssertionError(f"rasterize on the card differs from the CPU: "
                              f"{same}")
+    # what this run's rows need: the box kernel tests every pixel against
+    # the rows that can be positive or gray (12 operations each); the
+    # landmark kernel the pixels within a disc's reach for each row with
+    # r2 >= 0 (7 operations each); both write every output once
+    live = int(((rows[..., 2] >= 0) | (rows[..., 3] >= 0)).sum())
+    lm_live = lm_rows[lm_rows[..., 2] >= 0]
+    lm_tests = float(((2 * lm_live[:, 2].sqrt().ceil() + 1) ** 2).sum())
     bounds = {
         "rasterize_boxes": bound(rows.numel() * 4 + b * m * m * 6 * 4,
-                                 b * m * m * k * 12),
+                                 live * m * m * 12),
         "rasterize_landmarks": bound(lm_rows.numel() * 4
-                                     + b * m * m * num_lm * 4,
-                                     b * m * m * num_lm * k * 7)}
+                                     + b * m * m * num_lm * 4, lm_tests * 7)}
     times = {n: (device[n], t[1]) for n, t in times.items()}
-    return err, times, bounds, floors
+    return err, times, bounds, {n: floors[n] for n in times}
 
 
 def ohem_case(rng, b, p, kind):
@@ -1607,6 +1753,130 @@ def phase_train(name, cfg, steps, canvas):
     return launches
 
 
+def phase_fit():
+    """Phase 22: ``fit`` on kitti_vehicle() at full width, B=32, 240 px, on
+    the card by default, fed by a step-keyed stream of synthetic batches,
+    into a temporary workdir: 8 steps straight against 4 steps, a restart
+    into a new model from the checkpoint, and 4 more."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from densebox_tpu_torch import DenseBox, kitti_vehicle
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.infer import detect_batch
+    from densebox_tpu_torch.train import (create_train_state, fit,
+                                          load_for_inference, make_manager,
+                                          save_checkpoint)
+
+    cfg = kitti_vehicle()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, log_every=4, ckpt_every=2, ckpt_keep=2))
+    b = cfg.train.batch_size
+
+    def batches(step):
+        gen = torch.Generator(device="cuda").manual_seed(2200 + step)
+        return synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes)
+
+    def run(workdir, steps, **kw):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(cfg, batches, workdir, num_steps=steps,
+                  sample_from_canvas=False, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_launches()
+
+    def state_of(res):
+        return ({k: v.clone() for k, v in res.state.model.state_dict().items()},
+                {k: v.clone() for k, v in res.state.momentum.items()})
+
+    def equal(a, b):
+        return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+    root = tempfile.mkdtemp(prefix="densebox_fit_")
+    try:
+        work = {n: os.path.join(root, n) for n in ("straight", "resumed",
+                                                   "salted")}
+        run(work["straight"], 1)                 # cuDNN picks its algorithms
+        shutil.rmtree(work["straight"])
+        straight, wall, launches = run(work["straight"], 8)
+        # the same 8 steps with no workdir, from a state made beforehand:
+        # no set-up, no checkpoint and no log inside the clock, one read of
+        # the device at the end; and one checkpoint write alone
+        t0 = time.perf_counter()
+        fresh = create_train_state(DenseBox(cfg.model), cfg)
+        torch.cuda.synchronize()
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        _, wall_bare, _ = run(None, 8, init_state=fresh)
+        t0 = time.perf_counter()
+        save_checkpoint(make_manager(os.path.join(root, "one")),
+                        straight.state, cfg)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size_mb = os.path.getsize(os.path.join(
+            root, "one", "step_00000008.pt")) / 2 ** 20
+        run(work["resumed"], 4)
+        shutil.copytree(work["resumed"], work["salted"])
+        resumed, _, resumed_launches = run(work["resumed"], 8)
+        salted, _, _ = run(work["salted"], 8, run_salt=1)
+        same = equal(state_of(straight), state_of(resumed))
+        metrics_same = all(
+            straight.last_metrics[k] == resumed.last_metrics[k]
+            for k in ("loss_total", "update_norm", "loss_cls", "loss_loc"))
+        salt_differs = not equal(state_of(straight), state_of(salted))
+        kept = make_manager(os.path.join(work["straight"], "ckpt")).all_steps()
+        files = sorted(os.listdir(os.path.join(work["straight"], "ckpt")))
+        # the last checkpoint, loaded for inference, detects as the model
+        # that was trained
+        got_cfg, sd = load_for_inference(os.path.join(work["resumed"], "ckpt"))
+        loaded = DenseBox(got_cfg.model).eval()
+        loaded.load_state_dict(sd)
+        canvas = batches(99)["image"][:2]
+        infer_cfg = with_live_threshold(loaded, canvas, got_cfg.infer)
+        with torch.inference_mode():
+            want = detect_batch(straight.state.model.eval(), canvas,
+                                infer_cfg, got_cfg.label)
+            got = detect_batch(loaded, canvas, infer_cfg, got_cfg.label)
+        detect_same = {k: bool(torch.equal(got[k], want[k])) for k in want}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want_launches = {"rasterize_boxes": 8, "rasterize_landmarks": 0, "ohem": 8}
+    got_launches = {k: launches[k] for k in want_launches}
+    emit({"phase": "fit", "model": "kitti_vehicle w1.0 f32", "batch": b,
+          "patch": cfg.label.patch_size, "steps": 8,
+          "ms_per_step_through_fit": wall / 8 * 1e3,
+          "boundaries": {"log_every": 4, "ckpt_every": 2, "ckpt_keep": 2},
+          "ms_per_step_through_fit_without_workdir": wall_bare / 8 * 1e3,
+          "model_and_state_set_up_ms": setup_ms,
+          "checkpoint_write_ms": save_ms, "checkpoint_file_mb": size_mb,
+          "card": card_line(),
+          "resumed_bit_equal": same, "resumed_metrics_equal": metrics_same,
+          "last_metrics": straight.last_metrics,
+          "run_salt_1_differs": salt_differs,
+          "checkpoints_kept": kept, "files": files,
+          "loaded_model_detects_as_trained": detect_same,
+          "detections": int(want["valid"].sum()),
+          "launches": got_launches, "launches_expected": want_launches,
+          "launches_of_the_4_resumed_steps": {
+              k: resumed_launches[k] for k in want_launches}})
+    if not (same and metrics_same):
+        raise AssertionError("fit: the run resumed from a checkpoint differs "
+                             "from the uninterrupted one")
+    if not salt_differs:
+        raise AssertionError("fit: run_salt=1 did not change the draws")
+    if kept != [6, 8] or files != ["step_00000006.pt", "step_00000008.pt"]:
+        raise AssertionError(f"fit: checkpoints kept {kept}, files {files}")
+    if not all(detect_same.values()) or not int(want["valid"].sum()):
+        raise AssertionError(f"fit: the loaded checkpoint does not detect as "
+                             f"the trained model: {detect_same}")
+    if got_launches != want_launches or any(
+            not np.isfinite(v) for v in straight.last_metrics.values()):
+        raise AssertionError(f"fit: kernel launches {got_launches}, want "
+                             f"{want_launches}; metrics {straight.last_metrics}")
+    return launches
+
+
 def conv_library_ms(args) -> float:
     """One PyTorch call for the int8 conv's function, as its yardstick: the
     same int8 values as bf16 through ``F.conv2d`` (cuDNN; int8 codes are
@@ -1676,6 +1946,7 @@ def main() -> int:
     (_, kitti), (_, malf) = train_cfgs()
     launches["train_kitti"] = phase_train("kitti_vehicle", kitti, 30, False)
     launches["train_malf"] = phase_train("malf_face", malf, 12, True)
+    launches["fit"] = phase_fit()
 
     # (name, source, TPU kernel it replaces, the main-path run its launch
     # count is read from, its counter)

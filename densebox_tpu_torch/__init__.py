@@ -17,8 +17,11 @@ kernel sources are under csrc/), the image pyramid and landmark decode
 (infer/) and the request-coalescing server (serve.py) — and the train step:
 GT rasterization and OHEM selection on hand-written CUDA kernels
 (ops/labels.py, ops/ohem.py), the train-mode forward with the fused
-relu+dropout, on-device patch sampling and synthetic data (data/), and the
-SGD step (train/). See ROADMAP.md for the slices to come.
+relu+dropout, on-device patch sampling and synthetic data (data/), the SGD
+step (train/loop.py) and the trainer around it: ``fit`` with checkpoints,
+exact resume and the divergence check (train/trainer.py,
+train/checkpoint.py), metric logging (utils/logging.py). See ROADMAP.md for
+the slices to come.
 
 Public functions take and return the JAX package's layouts: NHWC images and
 maps, (B, K, 4) xyxy boxes.

@@ -201,11 +201,15 @@ class DenseBoxConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "DenseBoxConfig":
+        def _tuples(v):
+            # JSON gives lists, nested ones too (``lm_anchors``); the
+            # fields hold tuples, so that configs compare and hash
+            return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+
         def _mk(tp, sub):
             fields = {f.name for f in dataclasses.fields(tp)}
-            kw = {k: (tuple(v) if isinstance(v, list) else v)
-                  for k, v in sub.items() if k in fields}
-            return tp(**kw)
+            return tp(**{k: _tuples(v) for k, v in sub.items()
+                         if k in fields})
 
         return cls(
             model=_mk(ModelCfg, d.get("model", {})),

@@ -21,10 +21,20 @@ in the NHWC layout the loss reads:
       landmark is invisible or its box out of band):
         lm     (B, M, M, L)  1 where any box's (x-lx)^2 + (y-ly)^2 <= r2
 
+  rasterize_maps(rows, lm_rows, m, inv_norm, num_lm)
+      both of the above for one batch: on the card one launch for the two
+      maps (it adds one to each kernel's count).
+
 Every float operation is rounded on its own (no FMA), in the kernels and in
 the plain versions, so both equal the JAX functions called without jit bit
 for bit. On a CUDA tensor a wrapper launches ``csrc/labels.cu`` (built on
 first use) or raises; on a CPU tensor it runs the plain version.
+
+The landmark kernel scatters: a block owns ``landmark_chunk`` floats of a
+patch's flattened (M, M, L) output and tests, for each row with r2 >= 0,
+only the pixels around its disc. The box kernel keeps, in index order, only
+the rows that can touch a block's tile of 32 x 8 pixels. Numpy models of
+both schedules are held to the plain versions in tests/test_torch_labels.py.
 """
 
 from __future__ import annotations
@@ -46,6 +56,22 @@ LM_RADIUS = 1.0  # map units (paper §4: "radius ~1 px")
 launches = {"rasterize_boxes": 0, "rasterize_landmarks": 0}
 
 MAX_ROWS = 1024      # rows of one patch staged in shared memory
+LM_MAX_CHUNK = 6140  # floats of landmark output a block builds there (24 KB)
+LM_MIN_CHUNK = 1024  # and the least it is given, however small the batch
+LM_BLOCKS = 320      # blocks the landmark kernel aims at over a batch
+
+
+def landmark_chunk(m: int, num_lm: int, batch: int) -> Tuple[int, int]:
+    """(floats of a patch's (M, M, L) output that one block of the landmark
+    kernel builds, blocks per patch): about ``LM_BLOCKS`` blocks over the
+    batch (timed on an H100 at B = 32: 3 to 20 blocks a patch, flat from 8
+    to 15), within what shared memory holds, a multiple of 4 floats (the
+    16-byte stores)."""
+    per = m * m * num_lm
+    blocks = max(-(-LM_BLOCKS // batch), -(-per // LM_MAX_CHUNK))
+    chunk = max(-(-per // blocks), min(LM_MIN_CHUNK, per))
+    chunk = min(-(-chunk // 4) * 4, LM_MAX_CHUNK)
+    return chunk, -(-per // chunk)
 
 
 def reset_launches() -> None:
@@ -140,17 +166,20 @@ def rasterize_landmarks_reference(rows: torch.Tensor, m: int, num_lm: int
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
-    """The two entry points of csrc/labels.cu, built and loaded on first
-    use."""
+    """The three entry points of csrc/labels.cu (boxes, landmarks, both),
+    built and loaded on first use."""
     lib = build.load("labels")
     boxes = lib.densebox_rasterize_boxes
     boxes.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                       + [ctypes.c_float, ctypes.c_void_p])
     lms = lib.densebox_rasterize_landmarks
-    lms.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+    lms.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                     + [ctypes.c_void_p])
-    boxes.restype = lms.restype = ctypes.c_int
-    return boxes, lms
+    both = lib.densebox_rasterize_maps
+    both.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    boxes.restype = lms.restype = both.restype = ctypes.c_int
+    return boxes, lms, both
 
 
 def _check_rows(name: str, rows: torch.Tensor, width: int, m: int) -> None:
@@ -170,6 +199,19 @@ def _check_rows(name: str, rows: torch.Tensor, width: int, m: int) -> None:
         raise ValueError(f"{name}: rows must be contiguous")
 
 
+def _box_outputs(rows: torch.Tensor, m: int):
+    b = rows.shape[0]
+    score = torch.empty((b, m, m, 1), dtype=torch.float32, device=rows.device)
+    loc = torch.empty((b, m, m, 4), dtype=torch.float32, device=rows.device)
+    return score, loc, torch.empty_like(score)
+
+
+def _check_landmark_rows(rows: torch.Tensor, num_lm: int) -> None:
+    if num_lm < 1 or rows.dim() != 3 or rows.shape[1] % num_lm:
+        raise ValueError(f"rasterize_landmarks: want rows (B, K*L, 3) with "
+                         f"L = {num_lm} >= 1, got {tuple(rows.shape)}")
+
+
 def rasterize_boxes(rows: torch.Tensor, m: int, inv_norm: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, K, 8) float32 rows -> score (B, M, M, 1), loc (B, M, M, 4),
@@ -184,9 +226,7 @@ def rasterize_boxes(rows: torch.Tensor, m: int, inv_norm: float
         return rasterize_boxes_reference(rows, m, inv_norm)
     _check_rows("rasterize_boxes", rows, 8, m)
     b, k, _ = rows.shape
-    score = torch.empty((b, m, m, 1), dtype=torch.float32, device=rows.device)
-    ignore = torch.empty_like(score)
-    loc = torch.empty((b, m, m, 4), dtype=torch.float32, device=rows.device)
+    score, loc, ignore = _box_outputs(rows, m)
     with torch.cuda.device(rows.device):
         rc = _launchers()[0](
             rows.data_ptr(), score.data_ptr(), loc.data_ptr(),
@@ -207,9 +247,7 @@ def rasterize_landmarks(rows: torch.Tensor, m: int, num_lm: int
     contiguous, 1 <= K*L <= 1024, a multiple of L) launch the kernel;
     anything else raises, and so does a refused launch. Each launch adds one
     to ``launches["rasterize_landmarks"]``."""
-    if num_lm < 1 or rows.dim() != 3 or rows.shape[1] % num_lm:
-        raise ValueError(f"rasterize_landmarks: want rows (B, K*L, 3) with "
-                         f"L = {num_lm} >= 1, got {tuple(rows.shape)}")
+    _check_landmark_rows(rows, num_lm)
     if rows.device.type == "cpu":
         return rasterize_landmarks_reference(rows, m, num_lm)
     _check_rows("rasterize_landmarks", rows, 3, m)
@@ -219,9 +257,54 @@ def rasterize_landmarks(rows: torch.Tensor, m: int, num_lm: int
     with torch.cuda.device(rows.device):
         rc = _launchers()[1](
             rows.data_ptr(), lm.data_ptr(), b, rows.shape[1] // num_lm,
-            num_lm, m, torch.cuda.current_stream(rows.device).cuda_stream)
+            num_lm, m, landmark_chunk(m, num_lm, b)[0],
+            torch.cuda.current_stream(rows.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_landmarks: kernel launch failed with "
                            f"CUDA error {rc}")
     launches["rasterize_landmarks"] += 1
     return lm
+
+
+def rasterize_maps(rows: torch.Tensor, lm_rows: torch.Tensor, m: int,
+                   inv_norm: float, num_lm: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """``rasterize_boxes(rows, m, inv_norm)`` and
+    ``rasterize_landmarks(lm_rows, m, num_lm)`` of one batch (rows (B, K, 8),
+    lm_rows (B, K*L, 3), both on one device) -> score, loc, ignore, lm.
+
+    CPU rows take the two plain versions. CUDA rows launch both kernels'
+    work as one grid; what either wrapper refuses raises here too. Each
+    launch adds one to ``launches["rasterize_boxes"]`` and one to
+    ``launches["rasterize_landmarks"]``."""
+    inv_norm = float(np.float32(inv_norm))
+    _check_landmark_rows(lm_rows, num_lm)
+    if (lm_rows.device != rows.device or lm_rows.shape[0] != rows.shape[0]
+            or rows.dim() != 3
+            or lm_rows.shape[1] != rows.shape[1] * num_lm):
+        raise ValueError(f"rasterize_maps: want rows (B, K, 8) and lm_rows "
+                         f"(B, K*{num_lm}, 3) on one device, got "
+                         f"{tuple(rows.shape)} on {rows.device} and "
+                         f"{tuple(lm_rows.shape)} on {lm_rows.device}")
+    if rows.device.type == "cpu":
+        return rasterize_boxes_reference(rows, m, inv_norm) + (
+            rasterize_landmarks_reference(lm_rows, m, num_lm),)
+    _check_rows("rasterize_maps", rows, 8, m)
+    _check_rows("rasterize_maps", lm_rows, 3, m)
+    b, k, _ = rows.shape
+    score, loc, ignore = _box_outputs(rows, m)
+    lm = torch.empty((b, m, m, num_lm), dtype=torch.float32,
+                     device=rows.device)
+    with torch.cuda.device(rows.device):
+        rc = _launchers()[2](
+            rows.data_ptr(), score.data_ptr(), loc.data_ptr(),
+            ignore.data_ptr(), lm_rows.data_ptr(), lm.data_ptr(), b, k,
+            num_lm, m, inv_norm, landmark_chunk(m, num_lm, b)[0],
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterize_maps: kernel launch failed with CUDA "
+                           f"error {rc}")
+    launches["rasterize_boxes"] += 1
+    launches["rasterize_landmarks"] += 1
+    return score, loc, ignore, lm

@@ -16,7 +16,8 @@ Geometry, all in map units (input px / stride):
 ``rasterize`` keeps the JAX function's name and output dict. The packing of
 boxes into kernel rows is plain torch; the maps come from the two kernels
 of ``ops/kernels/labels.py`` (CUDA on the card, their plain versions on the
-CPU), already in NHWC.
+CPU), already in NHWC. With landmarks both kernels' work goes out as one
+launch (``rasterize_maps``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from densebox_tpu_torch.ops.kernels.labels import (  # noqa: F401
     pack_landmarks,
     rasterize_boxes,
     rasterize_landmarks,
+    rasterize_maps,
 )
 
 
@@ -58,10 +60,10 @@ def rasterize(
                          f"{tuple(boxes.shape[:2])}, got {box_valid.dtype} "
                          f"{tuple(box_valid.shape)}")
     m = cfg.map_size
-    score, loc, ignore = rasterize_boxes(pack_boxes(boxes, box_valid, cfg), m,
-                                         1.0 / cfg.loc_norm)
-    out = {"score": score, "loc": loc, "loc_mask": score, "ignore": ignore}
-    if landmarks is not None:
+    rows, inv_norm = pack_boxes(boxes, box_valid, cfg), 1.0 / cfg.loc_norm
+    if landmarks is None:
+        score, loc, ignore = rasterize_boxes(rows, m, inv_norm)
+    else:
         if (landmarks.dim() != 4 or landmarks.shape[3] != 2
                 or landmarks.shape[:2] != boxes.shape[:2]):
             raise ValueError(f"rasterize: want landmarks (B, K, L, 2) for "
@@ -74,6 +76,10 @@ def rasterize(
             raise ValueError(f"rasterize: want lm_valid "
                              f"{tuple(landmarks.shape[:3])}, got "
                              f"{tuple(lm_valid.shape)}")
-        rows = pack_landmarks(boxes, box_valid, landmarks, lm_valid, cfg)
-        out["lm"] = rasterize_landmarks(rows, m, landmarks.shape[2])
+        lm_rows = pack_landmarks(boxes, box_valid, landmarks, lm_valid, cfg)
+        score, loc, ignore, lm = rasterize_maps(rows, lm_rows, m, inv_norm,
+                                                landmarks.shape[2])
+    out = {"score": score, "loc": loc, "loc_mask": score, "ignore": ignore}
+    if landmarks is not None:
+        out["lm"] = lm
     return out

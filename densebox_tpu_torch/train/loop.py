@@ -2,9 +2,13 @@
 
 One ``train_step(state, batch)`` does GT rasterization, the train-mode
 forward, the OHEM loss, backward and the SGD update on the device; the batch
-carries raw patch pixels and padded box tensors only. The same step from the
-same parameters, momentum and generator state gives the same result bit for
-bit, on the card too (``repeatable_kernels``).
+carries raw patch pixels and padded box tensors only. A step's random draws
+(patch crops, dropout mask, OHEM uniforms) depend only on the state's seed
+and salt and on the step count (``step_seed``): the step reseeds the state's
+generator at its top, as the JAX package folds the step into its key. So
+the same step from the same parameters and momentum gives the same result
+bit for bit, on the card too (``repeatable_kernels``), and a run resumed
+from a checkpoint continues as the uninterrupted run would have.
 
 Optimizer, as the JAX package chains it: clip the gradients by their global
 norm, add ``weight_decay * p``, SGD momentum trace ``t = g + momentum * t``,
@@ -38,14 +42,18 @@ STEP_DRAWS = ("patches", "dropout_keep", "ohem_score", "ohem_refined")
 @dataclasses.dataclass
 class TrainState:
     """What a step reads and updates in place: the model (its parameters),
-    the SGD momentum trace per parameter name, the number of steps taken
-    and the generator of the per-step random draws (on the model's
-    device)."""
+    the SGD momentum trace per parameter name, the number of steps taken,
+    the generator of the per-step random draws (on the model's device;
+    reseeded by every step) and the ``seed`` and ``salt`` it is reseeded
+    from (``salt`` is 0 until a retry asks for other draws,
+    ``train.trainer.fit(run_salt=...)``)."""
 
     step: int
     model: DenseBox
     momentum: Dict[str, torch.Tensor]
     generator: torch.Generator
+    seed: int = 0
+    salt: int = 0
 
     def load(self, state_dict: Mapping[str, torch.Tensor],
              momentum: Mapping[str, torch.Tensor], step: int) -> None:
@@ -60,6 +68,26 @@ class TrainState:
             for k, buf in self.momentum.items():
                 buf.copy_(momentum[k])
         self.step = int(step)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def mix_seed(*values: int) -> int:
+    """A fixed 63-bit mix of a few integers (splitmix64's finalizer over a
+    running sum), the seed a ``torch.Generator`` takes."""
+    x = 0
+    for v in values:
+        x = (x + (v & _MASK64) + 0x9E3779B97F4A7C15) & _MASK64
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+        x ^= x >> 31
+    return x >> 1
+
+
+def step_seed(seed: int, salt: int, step: int) -> int:
+    """The seed of step ``step``'s draws: nothing but these three enter."""
+    return mix_seed(seed, salt, step)
 
 
 # steps inside ``repeatable_kernels`` right now, and the flag's value before
@@ -136,14 +164,16 @@ def create_train_state(model: DenseBox, cfg: DenseBoxConfig, device=None
                        ) -> TrainState:
     """Move ``model`` to ``device`` (the card when none is given), give it
     fresh He-normal weights from ``cfg.train.seed`` and zero momentum, and
-    seed the generator of the per-step draws on that device."""
+    make the generator of the per-step draws on that device (seeded from
+    ``cfg.train.seed`` and the step count by each step)."""
     dev = resolve_device(device)
     model.to(dev)
     model.load_state_dict(init_params(
         cfg.model, torch.Generator().manual_seed(cfg.train.seed)))
     momentum = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
-    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
-    return TrainState(step=0, model=model, momentum=momentum, generator=gen)
+    return TrainState(step=0, model=model, momentum=momentum,
+                      generator=torch.Generator(device=dev),
+                      seed=cfg.train.seed)
 
 
 def build_train_step(model: DenseBox, cfg: DenseBoxConfig, device,
@@ -170,7 +200,8 @@ def build_train_step(model: DenseBox, cfg: DenseBoxConfig, device,
         unknown = set(draws) - set(STEP_DRAWS)
         if unknown:
             raise ValueError(f"train_step: unknown draws {sorted(unknown)}")
-        gen = state.generator
+        gen = state.generator.manual_seed(
+            step_seed(state.seed, state.salt, state.step))
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         with torch.no_grad():
             if sample_from_canvas:
@@ -232,8 +263,9 @@ def make_train_step(model: DenseBox, cfg: DenseBoxConfig, device=None
       box_valid: (B, K) bool
       landmarks: (B, K, L, 2), lm_valid: (B, K, L)   [optional]
 
-    Every random draw of a step comes from ``state.generator`` unless
-    ``draws`` gives it: ``dropout_keep`` (the bool keep mask of the heads'
+    Every random draw of a step comes from ``state.generator``, reseeded
+    from ``step_seed(state.seed, state.salt, state.step)``, unless ``draws``
+    gives it: ``dropout_keep`` (the bool keep mask of the heads'
     hidden tensor, (B, M, M, heads * width)), ``ohem_score`` and
     ``ohem_refined`` ((B, M*M) uniforms of the two OHEM terms)."""
     return build_train_step(model, cfg, device, sample_from_canvas=False)

@@ -1,16 +1,26 @@
-"""The canvas train step (port of ``densebox_tpu/train/trainer.py:
-make_canvas_train_step``): on-device patch sampling, then the step of
-``train/loop.py``. The long-running training loop (``fit``), checkpoints
-and the divergence sentinel are not ported yet.
+"""Training loop (port of ``densebox_tpu/train/trainer.py``).
+
+One step = on-device patch sampling + GT rasterization + forward + OHEM loss
++ backward + SGD (``train/loop.py``). ``fit`` adds the loop around it:
+checkpoints with exact resume, metric logging, and the divergence check.
+It runs on one device; the JAX package's data-parallel mesh is not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+import math
+import os
+from typing import Callable, Dict, Mapping, Optional
 
 from densebox_tpu_torch.config import DenseBoxConfig
+from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.models.densebox import DenseBox
-from densebox_tpu_torch.train.loop import build_train_step
+from densebox_tpu_torch.train import checkpoint as ckpt_lib
+from densebox_tpu_torch.train.loop import (TrainState, build_train_step,
+                                           create_train_state, mix_seed)
+from densebox_tpu_torch.utils.logging import MetricsLogger
 
 
 def make_canvas_train_step(model: DenseBox, cfg: DenseBoxConfig,
@@ -24,3 +34,110 @@ def make_canvas_train_step(model: DenseBox, cfg: DenseBoxConfig,
     that function's draws. With ``sample_from_canvas=False`` the batch is
     taken as pre-cropped patches."""
     return build_train_step(model, cfg, device, sample_from_canvas)
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: TrainState
+    last_metrics: Dict[str, float]
+
+
+class TrainingDiverged(RuntimeError):
+    """Raised when the loss or the update norm goes non-finite. The trainer
+    checks the fetched values at every log and checkpoint boundary and
+    refuses to checkpoint a poisoned state, so a retry resumes from the last
+    finite checkpoint."""
+
+
+def fit(
+    cfg: DenseBoxConfig,
+    batches,
+    workdir: Optional[str] = None,
+    *,
+    num_steps: Optional[int] = None,
+    sample_from_canvas: bool = True,
+    resume: bool = True,
+    init_state: Optional[TrainState] = None,
+    run_salt: int = 0,
+    draws: Optional[Callable[[int], Mapping]] = None,
+    device=None,
+) -> FitResult:
+    """Run the training loop on ``device`` (the card when none is given;
+    raises without one).
+
+    ``batches`` is either an iterator of batch dicts, or a callable
+    ``step -> batch`` (step-keyed streams make resume bit-exact, since the
+    data consumed at step N is identical across interrupted and
+    uninterrupted runs; after a resume at step s the next batch fetched is
+    ``batches(s)``). With ``workdir`` the newest ``cfg.train.ckpt_keep``
+    checkpoints are kept under ``workdir/ckpt`` (every
+    ``cfg.train.ckpt_every`` steps and at the last one), metrics are logged
+    every ``cfg.train.log_every`` steps (TensorBoard files under
+    ``workdir/tb`` where a writer is installed), and with ``resume`` the
+    run continues from the latest checkpoint there.
+
+    The loop reads the device only at those boundaries: there the loss and
+    the update norm are fetched, and a non-finite value of either raises
+    ``TrainingDiverged`` before any checkpoint is written.
+
+    ``run_salt`` (nonzero on a retry after a divergence) is mixed into the
+    state's salt after the restore, so the retry draws fresh patch, dropout
+    and OHEM randomness instead of replaying a deterministic divergence bit
+    for bit. Salted resumes are intentionally NOT bit-exact against an
+    uninterrupted run.
+
+    ``draws(step)`` gives the step's random draws (the ``draws`` argument
+    of the step, ``train.loop.make_train_step``) in place of the state's
+    generator. It exists for parity tests, which feed the draws of the JAX
+    package's run; training leaves it None.
+    """
+    dev = resolve_device(device)
+    num_steps = num_steps or cfg.train.num_steps
+    fetch = batches if callable(batches) else (lambda _step: next(batches))
+
+    first = fetch(0)
+    state = init_state or create_train_state(
+        DenseBox(cfg.model, device=dev), cfg, device=dev)
+
+    mngr = logger = None
+    if workdir:
+        mngr = ckpt_lib.make_manager(os.path.join(workdir, "ckpt"),
+                                     cfg.train.ckpt_keep)
+        logger = MetricsLogger(os.path.join(workdir, "tb"))
+        if resume and ckpt_lib.restore_checkpoint(mngr, state, dev):
+            print(f"resumed from step {state.step}", flush=True)
+    if run_salt:
+        state.salt = mix_seed(state.salt, run_salt)
+
+    step_fn = make_canvas_train_step(state.model, cfg, sample_from_canvas,
+                                     device=dev)
+
+    last: Dict[str, float] = {}
+    # the step count lives on the host (state.step is a Python int), and
+    # the metrics stay on the device until a boundary fetches them
+    step = state.step
+    batch = first if step == 0 else fetch(step)
+    while step < num_steps:
+        state, metrics = step_fn(state, batch,
+                                 draws=draws(step) if draws else None)
+        step += 1
+        log_now = step % cfg.train.log_every == 0 or step == num_steps
+        save_now = step % cfg.train.ckpt_every == 0 or step == num_steps
+        if log_now or save_now:
+            loss = float(metrics["loss_total"])
+            upd = float(metrics.get("update_norm", 0.0))
+            if not (math.isfinite(loss) and math.isfinite(upd)):
+                raise TrainingDiverged(
+                    f"non-finite loss {loss} / update norm {upd} "
+                    f"at step {step}")
+        if logger and log_now:
+            last = logger.log(step, metrics)
+        elif step == num_steps:
+            last = {k: float(v) for k, v in metrics.items()}
+        if mngr and save_now:
+            ckpt_lib.save_checkpoint(mngr, state, cfg)
+        if step < num_steps:
+            batch = fetch(step)
+    if logger:
+        logger.close()
+    return FitResult(state=state, last_metrics=last)

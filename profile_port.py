@@ -53,10 +53,12 @@ Prints one JSON line per probe, after the card's name and power limit:
               momentum and ``update_norm`` repeat bit for bit, and ms/step
               of each mode over 10 steps, in turns;
   small_kernels  ``ohem_select`` (B=32, P=3600, errors of the paper model's
-              forward) and ``gather_windows`` (the MALF serve shape, bf16 and
-              f32) by device time (CUDA-graph replay), two readings each.
-              Uses only the two wrappers, so the same script times an older
-              tree of the package;
+              forward), ``gather_windows`` (the MALF serve shape, bf16 and
+              f32) and the two GT rasterizers (B=32, K=16, M=60, L=5) by
+              device time (CUDA-graph replay), two readings each; for a
+              package that has it, both maps in one launch and the landmark
+              kernel against its blocks a patch. Uses only the wrappers, so
+              the same script times an older tree of the package;
 ``--only`` takes a comma-separated subset of the groups serve (paper,
 turbo), int8 (turbo_int8, turbo_int8_hybrid), lm (malf_bf16,
 turbo_int8_lm4), train, fused_conv, resize, qconv, determinism,
@@ -77,11 +79,12 @@ from unittest import mock
 
 import numpy as np
 
-from chip_smoke import (QCONV_CASES, TURBO_LAUNCHES, WINDOW_CASES, card_line,
-                        device_ms, emit, init_model, init_quant_model,
-                        landmark_cells, median_ms, ohem_forward_case,
-                        qconv_inputs, serving_cells, train_cfgs,
-                        window_inputs, with_live_threshold)
+from chip_smoke import (QCONV_CASES, RASTER_CASES, TURBO_LAUNCHES,
+                        WINDOW_CASES, card_line, device_ms, emit, init_model,
+                        init_quant_model, label_rows, landmark_cells,
+                        median_ms, ohem_forward_case, qconv_inputs,
+                        serving_cells, train_cfgs, window_inputs,
+                        with_live_threshold)
 
 CANVAS = (8, 480, 640, 3)
 
@@ -96,7 +99,8 @@ def kernel_kind(name: str) -> str:
             ("requant_kernel", ("requant_kernel",)),
             ("window_kernel", ("window_rows_kernel", "window_elem_kernel",
                                "window_kernel")),
-            ("rasterizer_kernel", ("boxes_kernel", "landmarks_kernel")),
+            ("rasterizer_kernel", ("boxes_kernel", "landmarks_kernel",
+                                   "maps_kernel")),
             ("ohem_kernel", ("ohem_kernel",)),
             ("optimizer", ("multi_tensor_apply",)),
             ("sort", ("sort", "radix")),
@@ -452,6 +456,63 @@ def probe_small_kernels():
         wargs = window_inputs(rng, *shape, shared, dtype) + [shape[-1]]
         res[f"window_{name}_{str(dtype).split('.')[-1]}"] = [
             device_ms(lambda: gather_windows(*wargs)) for _ in range(2)]
+    res.update(probe_rasterizers())
+    return res
+
+
+def probe_rasterizers():
+    """Device time of the two GT rasterizers at the training shape (B=32,
+    K=16, M=60, L=5; ``chip_smoke.py``'s rows), through their wrappers alone;
+    where the package has them, also both maps in one launch and the landmark
+    kernel against the blocks it gives a patch."""
+    import torch
+
+    from densebox_tpu_torch import LabelCfg, malf_face
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.ops.kernels import labels as kl
+
+    _, b, k, m, num_lm = RASTER_CASES[0]
+    rows, lm_rows = (torch.from_numpy(a).cuda() for a in label_rows(
+        np.random.RandomState(17), b, k, m, num_lm))
+    inv = 1.0 / LabelCfg().loc_norm
+    res = {"rasterize_boxes_B32_K16_M60": [device_ms(
+               lambda: kl.rasterize_boxes(rows, m, inv)) for _ in range(2)],
+           "rasterize_landmarks_B32_K16_L5_M60": [device_ms(
+               lambda: kl.rasterize_landmarks(lm_rows, m, num_lm))
+               for _ in range(2)]}
+    # the rows a train step gives the kernels: a synthetic batch of the
+    # malf_face() preset, packed
+    cfg = malf_face()
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(20), b,
+                            cfg.label, cfg.train.max_boxes, num_lm)
+    step_rows = kl.pack_boxes(batch["boxes"], batch["box_valid"], cfg.label)
+    step_lm_rows = kl.pack_landmarks(batch["boxes"], batch["box_valid"],
+                                     batch["landmarks"], batch["lm_valid"],
+                                     cfg.label)
+    res["rows_of_a_train_step"] = {
+        "boxes_valid": int(batch["box_valid"].sum()),
+        "rasterize_boxes": [device_ms(
+            lambda: kl.rasterize_boxes(step_rows, m, inv)) for _ in range(2)],
+        "rasterize_landmarks": [device_ms(
+            lambda: kl.rasterize_landmarks(step_lm_rows, m, num_lm))
+            for _ in range(2)]}
+    if not hasattr(kl, "rasterize_maps"):
+        return res
+    res["rows_of_a_train_step"]["rasterize_maps_one_launch"] = [device_ms(
+        lambda: kl.rasterize_maps(step_rows, step_lm_rows, m, inv, num_lm))
+        for _ in range(2)]
+    res["rasterize_maps_one_launch"] = [device_ms(
+        lambda: kl.rasterize_maps(rows, lm_rows, m, inv, num_lm))
+        for _ in range(2)]
+    per = m * m * num_lm
+    sweep = {}
+    for blocks in (3, 4, 5, 6, 8, 10, 15, 20):
+        chunk = -(-per // blocks // 4) * 4
+        with mock.patch.object(kl, "landmark_chunk",
+                               lambda *a: (chunk, -(-per // chunk))):
+            sweep[f"{-(-per // chunk)}_blocks_a_patch"] = device_ms(
+                lambda: kl.rasterize_landmarks(lm_rows, m, num_lm))
+    res["rasterize_landmarks_by_blocks"] = sweep
     return res
 
 

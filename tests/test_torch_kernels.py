@@ -609,8 +609,13 @@ def label_rows(seed, b, k, m, num_lm):
     return rows.astype(np.float32), lm.astype(np.float32)
 
 
-# (B, K, M, L): the training shape, a ragged one and a single pixel row
-LABEL_SHAPES = [(32, 16, 60, 5), (3, 1, 8, 1), (2, 5, 17, 3)]
+# (B, K, M, L): the training shape, a ragged one, a map narrower than a tile
+# row, maps whose size is no multiple of 4 with as many rows as a patch may
+# have (K = 1024: four staging passes; K * L = 1024), one pixel, a map just
+# over one tile's width and a batch the landmark kernel gives other chunks
+LABEL_SHAPES = [(32, 16, 60, 5), (3, 1, 8, 1), (2, 5, 17, 3),
+                (2, 1024, 125, 1), (2, 256, 125, 4), (1, 3, 1, 1),
+                (5, 7, 33, 2), (3, 16, 60, 5), (70, 2, 24, 4)]
 
 
 @pytest.mark.gpu
@@ -632,6 +637,113 @@ def test_rasterizer_kernels_match_plain_versions(cuda, shape):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
+def _bits_equal(got, want):
+    return all(g.shape == w.shape and g.is_contiguous()
+               and torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=str)
+def test_rasterize_maps_one_launch_matches_plain_versions(cuda, shape):
+    _, _, m, num_lm = shape
+    rows, lm_rows = (torch.from_numpy(a).to(cuda)
+                     for a in label_rows(sum(shape) + 1, *shape))
+    before = dict(klabels.launches)
+    got = klabels.rasterize_maps(rows, lm_rows, m, 0.08, num_lm)
+    torch.cuda.synchronize()
+    assert klabels.launches == {k_: v + 1 for k_, v in before.items()}
+    want = klabels.rasterize_boxes_reference(
+        rows, m, float(np.float32(0.08))) + (
+        klabels.rasterize_landmarks_reference(lm_rows, m, num_lm),)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rasterizers_on_the_quarter_pixel_grid(cuda, seed):
+    """Centres and radii on quarter pixels (rims everywhere), landmarks from
+    outside the map to outside it again with squared radii 0 to 6.25, and
+    every slot invalid in one patch."""
+    b, k, m, num_lm = 8, 16, 60, 5
+    rng = np.random.RandomState(seed)
+    rows, _ = label_rows(seed, b, k, m, num_lm)
+    rows[..., :2] = np.round(rows[..., :2] * 4) / 4
+    rad = np.round(rng.uniform(0.25, m / 4, (b, k)) * 4) / 4
+    rows[..., 2] = np.where(rows[..., 2] < 0, -1, rad * rad)
+    rows[..., 3] = np.where(rows[..., 3] < 0, -1, (rad + 2) ** 2)
+    lm = np.concatenate([
+        np.round(rng.uniform(-2, m + 2, (b, k * num_lm, 2)) * 4) / 4,
+        rng.choice([-1.0, 0.0, 0.25, 1.0, 2.25, 6.25], (b, k * num_lm, 1))],
+        -1).astype(np.float32)
+    rows[2, :, 2:4] = -1
+    lm[2, :, 2] = -1
+    rows, lm = torch.from_numpy(rows).to(cuda), torch.from_numpy(lm).to(cuda)
+    want = klabels.rasterize_boxes_reference(
+        rows, m, float(np.float32(0.08))) + (
+        klabels.rasterize_landmarks_reference(lm, m, num_lm),)
+    got = klabels.rasterize_boxes(rows, m, 0.08) + (
+        klabels.rasterize_landmarks(lm, m, num_lm),)
+    assert _bits_equal(got, want)
+    assert _bits_equal(klabels.rasterize_maps(rows, lm, m, 0.08, num_lm), want)
+    assert want[3].sum() > 0 and all(float(w[2].abs().sum()) == 0 for w in want)
+
+
+@pytest.mark.gpu
+def test_rasterizers_with_huge_and_non_finite_rows(cuda):
+    """Centres and radii of 2^20 and more, infinities, NaN and -0.0: the
+    kernels stop culling where float sums stop being exact, and equal the
+    plain versions bit for bit (NaN targets included)."""
+    m, num_lm = 12, 2
+    inf, nan = np.inf, np.nan
+    rows = torch.tensor([[
+        [5, 5, 4, 16, 1, 1, 9, 9], [3e6, 5, 9e12, 9.1e12, 0, 0, 1, 1],
+        [5, -2e6, 4.1e12, -1, 0, 0, 1, 1], [nan, 5, 4, 16, 1, 1, 9, 9],
+        [6, 6, nan, 9, 2, 2, 8, 8], [7, 7, inf, inf, 3, 3, 9, 9],
+        [2, 2, -0.0, -0.0, 1, 1, 3, 3], [8, 3, nan, nan, 1, 1, 3, 3],
+        [4, 9, 1, 4, -inf, 0, inf, nan], [1, 1, 1, 1, 0, 0, 2, 2]]],
+        device=cuda)
+    lm_rows = torch.tensor([[
+        [5, 5, 1], [1e7, 5, 1e14], [nan, 5, 1], [5, nan, 1], [5, 5, nan],
+        [3, 3, inf], [2, 7, -0.0], [-3e6, 6, 9.1e12], [6, 6, 0],
+        [7.5, 7.5, 0.5], [1, 1, 1], [11, 11, 2], [0, 0, 1], [4, 4, -1],
+        [9, 2, 1], [2, 9, 1], [6, 1, 4], [1, 6, 4], [5, 5, 0.25],
+        [8, 8, 2.25]]], device=cuda)
+    for i in list(range(rows.shape[1])) + [slice(None)]:
+        r = rows[:, i:i + 1].contiguous() if isinstance(i, int) else rows
+        got = klabels.rasterize_boxes(r, m, 0.08)
+        want = klabels.rasterize_boxes_reference(r, m, float(np.float32(0.08)))
+        assert _bits_equal(got, want), i
+    for i in list(range(0, lm_rows.shape[1], 2)) + [slice(None)]:
+        r = lm_rows[:, i:i + 2].contiguous() if isinstance(i, int) else lm_rows
+        got = klabels.rasterize_landmarks(r, m, num_lm)
+        assert _bits_equal([got], [klabels.rasterize_landmarks_reference(
+            r, m, num_lm)]), i
+    got = klabels.rasterize_maps(rows, lm_rows, m, 0.08, num_lm)
+    want = klabels.rasterize_boxes_reference(
+        rows, m, float(np.float32(0.08))) + (
+        klabels.rasterize_landmarks_reference(lm_rows, m, num_lm),)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.gpu
+@settings(max_examples=25, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(b=st.integers(1, 5), k=st.integers(1, 40), m=st.integers(1, 70),
+       num_lm=st.integers(1, 6), seed=st.integers(0, 10 ** 6))
+def test_rasterizer_kernels_over_shapes(cuda, b, k, m, num_lm, seed):
+    rows, lm_rows = (torch.from_numpy(a).to(cuda)
+                     for a in label_rows(seed, b, k, m, num_lm))
+    want = klabels.rasterize_boxes_reference(
+        rows, m, float(np.float32(0.08))) + (
+        klabels.rasterize_landmarks_reference(lm_rows, m, num_lm),)
+    got = klabels.rasterize_boxes(rows, m, 0.08) + (
+        klabels.rasterize_landmarks(lm_rows, m, num_lm),)
+    assert _bits_equal(got, want)
+    assert _bits_equal(klabels.rasterize_maps(rows, lm_rows, m, 0.08, num_lm),
+                       want)
+
+
 @pytest.mark.gpu
 def test_rasterizer_wrapper_checks(cuda):
     rows = torch.zeros(2, 4, 8, device=cuda)
@@ -646,6 +758,12 @@ def test_rasterizer_wrapper_checks(cuda):
         klabels.rasterize_boxes(torch.zeros(1, 1025, 8, device=cuda), 8, 0.08)
     with pytest.raises(ValueError, match="K\\*L"):
         klabels.rasterize_landmarks(torch.zeros(2, 7, 3, device=cuda), 8, 2)
+    with pytest.raises(ValueError, match="one device"):
+        klabels.rasterize_maps(rows, torch.zeros(2, 8, 3), 8, 0.08, 2)
+    # rows that do not start on a 16-byte boundary are refused, not misread
+    odd = torch.zeros(2 * 4 * 8 + 1, device=cuda)[1:].view(2, 4, 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        klabels.rasterize_boxes(odd, 8, 0.08)
 
 
 def test_rasterizer_wrapper_refuses_other_devices():
@@ -823,3 +941,49 @@ def test_train_step_repeats_on_the_card(cuda, preset):
             assert torch.equal(first[k], second[k]), k
     assert all(bool(torch.isfinite(v)) for v in runs[0][2].values())
     assert any(not torch.equal(v, start[0][k]) for k, v in runs[0][0].items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["kitti_vehicle", "malf_face"])
+def test_fit_resumes_bit_exact_on_the_card(cuda, preset, tmp_path):
+    """``fit`` on the card (device=None): 4 steps straight against 2 steps,
+    a restart from the checkpoint into a fresh model, and 2 more, on a
+    step-keyed stream: parameters, momentum and the last metrics bit for
+    bit; one box-rasterizer launch a step."""
+    import densebox_tpu_torch as port
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.train import fit, load_for_inference
+
+    cfg = getattr(port, preset)()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, width_mult=0.25),
+        train=dataclasses.replace(cfg.train, batch_size=8, log_every=2,
+                                  ckpt_every=2, ckpt_keep=1))
+    canvas = preset == "malf_face"
+    label = (dataclasses.replace(cfg.label, patch_size=480) if canvas
+             else cfg.label)
+
+    def batches(step):
+        gen = torch.Generator(device=cuda).manual_seed(50 + step)
+        return synthetic_batch(gen, 8, label, cfg.train.max_boxes,
+                               cfg.model.num_landmarks)
+
+    before = klabels.launches["rasterize_boxes"]
+    straight = fit(cfg, batches, str(tmp_path / "a"), num_steps=4,
+                   sample_from_canvas=canvas)
+    assert klabels.launches["rasterize_boxes"] == before + 4
+    fit(cfg, batches, str(tmp_path / "b"), num_steps=2,
+        sample_from_canvas=canvas)
+    resumed = fit(cfg, batches, str(tmp_path / "b"), num_steps=4,
+                  sample_from_canvas=canvas)
+    assert resumed.state.model is not straight.state.model
+    assert next(resumed.state.model.parameters()).device.type == "cuda"
+    for k, v in straight.state.model.state_dict().items():
+        assert torch.equal(v, resumed.state.model.state_dict()[k]), k
+    for k, v in straight.state.momentum.items():
+        assert torch.equal(v, resumed.state.momentum[k]), k
+    for k, v in straight.last_metrics.items():
+        assert k == "steps_per_sec" or v == resumed.last_metrics[k], k
+    _, sd = load_for_inference(str(tmp_path / "b" / "ckpt"))
+    assert all(v.device.type == "cuda" and torch.equal(
+        v, straight.state.model.state_dict()[k]) for k, v in sd.items())

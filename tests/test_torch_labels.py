@@ -178,3 +178,290 @@ def test_rasterize_checks_shapes():
     with pytest.raises(ValueError, match="lm_valid"):
         rasterize(b, v, cfg, torch.zeros(2, 3, 5, 2),
                   torch.ones(2, 3, 4, dtype=torch.bool))
+
+
+# --- the CUDA kernels' schedules, as numpy models ---------------------------
+#
+# csrc/labels.cu does not test every pixel against every row: the landmark
+# kernel scatters each live row into the chunk of output a block owns, and
+# the box kernel keeps, for a tile of 32 x 8 pixels, only the rows that can
+# touch it. The models below follow those schedules in float32 and are held
+# to the plain versions bit for bit; the GPU-marked tests of
+# tests/test_torch_kernels.py hold the kernels themselves.
+
+F = np.float32
+EXACT_BELOW = F(2.0 ** 20)
+
+
+def _reach(c, rad, lo_lim, hi_lim):
+    """csrc/labels.cu:reach: the integers of [lo_lim, hi_lim] within
+    rad + 1 of c, or None."""
+    if not (abs(c) < EXACT_BELOW and rad < EXACT_BELOW):
+        return lo_lim, hi_lim
+    lo = max(F(np.floor(F(c - rad)) - F(1)), F(lo_lim))
+    hi = min(F(np.ceil(F(c + rad)) + F(1)), F(hi_lim))
+    return (int(lo), int(hi)) if lo <= hi else None
+
+
+def _dist2(px, py, cx, cy):
+    dx, dy = (px - cx).astype(F), (py - cy).astype(F)
+    return (dx * dx).astype(F) + (dy * dy).astype(F)
+
+
+def scatter_landmarks(rows, m, num_lm, chunk):
+    """One patch's (M, M, L) landmark map by the kernel's schedule: rows
+    (K*L, 3) float32, ``chunk`` output floats a block. Also returns the
+    number of predicate tests made."""
+    per = m * m * num_lm
+    out = np.full(per, np.nan, F)
+    tests = 0
+    for start in range(0, per, chunk):
+        n = min(chunk, per - start)
+        tile = np.zeros(n, F)
+        y_first, y_last = start // (m * num_lm), (start + n - 1) // (m * num_lm)
+        for r, (lx, ly, r2) in enumerate(rows):
+            if not r2 >= 0:
+                continue
+            with np.errstate(invalid="ignore", over="ignore"):
+                rad = np.sqrt(F(r2))
+                ys = _reach(ly, rad, y_first, y_last)
+                xs = _reach(lx, rad, 0, m - 1)
+                if ys is None or xs is None:
+                    continue
+                y, x = np.meshgrid(np.arange(ys[0], ys[1] + 1),
+                                   np.arange(xs[0], xs[1] + 1), indexing="ij")
+                hit = _dist2(x.astype(F), y.astype(F), lx, ly) <= r2
+            tests += hit.size
+            o = (y[hit] * m + x[hit]) * num_lm + r % num_lm - start
+            tile[o[(o >= 0) & (o < n)]] = 1.0
+        out[start:start + n] = tile
+    return out.reshape(m, m, num_lm), tests
+
+
+def tile_rows(rows, x0, y0, m):
+    """The indices of the box rows (K, 8) that the kernel stages for the
+    tile of 32 x 8 pixels at (x0, y0), in index order."""
+    x_last, y_last = min(x0 + 31, m - 1), min(y0 + 7, m - 1)
+    kept = []
+    for i, (cx, cy, rc2, rg2) in enumerate(rows[:, :4]):
+        reach2 = np.fmax(rc2, rg2)           # NaN loses, as CUDA's fmaxf
+        if not reach2 >= 0:
+            continue
+        with np.errstate(over="ignore", invalid="ignore"):
+            rad = F(np.sqrt(F(reach2)) + F(1))
+            if (abs(cx) < EXACT_BELOW and abs(cy) < EXACT_BELOW
+                    and rad < EXACT_BELOW and not (
+                        F(cx + rad) >= x0 and F(cx - rad) <= x_last
+                        and F(cy + rad) >= y0 and F(cy - rad) <= y_last)):
+                continue
+        kept.append(i)
+    return kept
+
+
+def tiled_boxes(rows, m, inv_norm):
+    """One patch's score (M, M), loc (M, M, 4) and ignore (M, M) by the
+    kernel's schedule: per tile the staged rows in index order, the running
+    minimum replaced on strict ``<``. Also returns the rows walked per
+    pixel, summed."""
+    score, ignore = np.zeros((m, m), F), np.zeros((m, m), F)
+    loc = np.zeros((m, m, 4), F)
+    walked = 0
+    for y0 in range(0, m, 8):
+        for x0 in range(0, m, 32):
+            ys, xs = np.arange(y0, min(y0 + 8, m)), np.arange(x0, min(x0 + 32, m))
+            y, x = np.meshgrid(ys.astype(F), xs.astype(F), indexing="ij")
+            best = np.full(y.shape, np.inf, F)
+            box = np.zeros(y.shape + (4,), F)
+            pos, gray = np.zeros(y.shape, bool), np.zeros(y.shape, bool)
+            for i in tile_rows(rows, x0, y0, m):
+                with np.errstate(invalid="ignore", over="ignore"):
+                    d2 = _dist2(x, y, rows[i, 0], rows[i, 1])
+                    gray |= d2 <= rows[i, 3]
+                    pos_i = d2 <= rows[i, 2]
+                    take = pos_i & (d2 < best)
+                best = np.where(take, d2, best)
+                box = np.where(take[..., None], rows[i, 4:], box)
+                pos |= pos_i
+                walked += y.size
+            posf = pos.astype(F)
+            sl = np.s_[y0:y0 + 8, x0:x0 + 32]
+            score[sl], ignore[sl] = posf, (gray & ~pos).astype(F)
+            with np.errstate(invalid="ignore", over="ignore"):
+                loc[sl] = np.stack(
+                    [(x - box[..., 0]) * F(inv_norm) * posf,
+                     (y - box[..., 1]) * F(inv_norm) * posf,
+                     (box[..., 2] - x) * F(inv_norm) * posf,
+                     (box[..., 3] - y) * F(inv_norm) * posf], -1)
+    return score, loc, ignore, walked
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, F).view(np.int32)
+
+
+def _check_models(rows, lm_rows, m, num_lm, chunk=None):
+    """Both models against the plain versions on (B, K, 8) and (B, K*L, 3)
+    rows, bit for bit; returns the work the schedules did."""
+    inv = F(1 / 12.5)
+    if chunk is None:
+        chunk = klabels.landmark_chunk(m, num_lm, len(rows))[0]
+    want = klabels.rasterize_boxes_reference(torch.from_numpy(rows), m,
+                                             float(inv))
+    want_lm = klabels.rasterize_landmarks_reference(torch.from_numpy(lm_rows),
+                                                    m, num_lm).numpy()
+    tests = walked = 0
+    for b in range(len(rows)):
+        score, loc, ignore, w = tiled_boxes(rows[b], m, inv)
+        for got, ref, name in ((score, want[0][b, ..., 0], "score"),
+                               (loc, want[1][b], "loc"),
+                               (ignore, want[2][b, ..., 0], "ignore")):
+            np.testing.assert_array_equal(_bits(got), _bits(ref.numpy()),
+                                          err_msg=f"{name} of patch {b}")
+        lm, t = scatter_landmarks(lm_rows[b], m, num_lm, chunk)
+        np.testing.assert_array_equal(_bits(lm), _bits(want_lm[b]),
+                                      err_msg=f"lm of patch {b}")
+        tests, walked = tests + t, walked + w
+    return tests, walked
+
+
+def _label_rows(case, b, k, m, num_lm):
+    from chip_smoke import label_rows
+
+    rows, lm_rows = label_rows(np.random.RandomState(17), b, k, m, num_lm,
+                               quarter=case == "quarter_grid")
+    if case == "all_invalid":
+        rows[..., 2:4] = -1.0
+        lm_rows[..., 2] = -1.0
+    return rows, lm_rows
+
+
+@pytest.mark.parametrize("case,b,k,m,num_lm", [
+    ("train", 4, 16, 60, 5), ("ragged", 3, 1, 8, 1),
+    ("quarter_grid", 4, 16, 60, 5), ("all_invalid", 2, 16, 60, 5),
+    ("m125_k1024", 1, 1024, 125, 1), ("m125_kl1024", 1, 256, 125, 4),
+    ("one_pixel", 2, 2, 1, 1), ("m33", 2, 5, 33, 2)])
+def test_kernel_schedules_equal_the_plain_versions(case, b, k, m, num_lm):
+    """The cases of chip_smoke.py's phase 17 (fewer patches), through the
+    numpy models of the two kernels' schedules."""
+    rows, lm_rows = _label_rows(case, b, k, m, num_lm)
+    tests, walked = _check_models(rows, lm_rows, m, num_lm)
+    if case == "all_invalid":
+        assert tests == 0 and walked == 0       # nothing staged, nothing tested
+    if case == "train":
+        # the scatter tests a few pixels a live row, not every pixel
+        assert 0 < tests < b * k * num_lm * 40
+        assert 0 < walked < b * m * m * k
+
+
+@pytest.mark.parametrize("chunk", [1800, 3600, 1024, 40, 100])
+def test_landmark_scatter_on_chunk_edges(chunk):
+    """A centre at every quarter pixel from 3 above to 3 below each map row
+    where a chunk ends, at columns inside, on the rim of and outside the
+    map, with squared radii 0, 0.25, 1, 2.25 and 6.25."""
+    from chip_smoke import LM_R2, landmark_edge_rows
+
+    m, num_lm, k = (60, 5, 16) if chunk >= 1024 else (8, 3, 4)
+    lm_rows = landmark_edge_rows(m, num_lm, k, chunk)
+    assert set(np.unique(lm_rows[..., 2])) >= set(F(LM_R2))
+    assert lm_rows[..., 0].min() == -2 and lm_rows[..., 0].max() == m + 2
+    want = klabels.rasterize_landmarks_reference(torch.from_numpy(lm_rows), m,
+                                                 num_lm).numpy()
+    assert want.sum() > 0
+    for b in range(len(lm_rows)):
+        got, _ = scatter_landmarks(lm_rows[b], m, num_lm, chunk)
+        np.testing.assert_array_equal(_bits(got), _bits(want[b]),
+                                      err_msg=f"patch {b}")
+
+
+def test_schedules_with_huge_and_non_finite_rows():
+    """Centres and radii of 2^20 and more, infinities, NaN and -0.0: the
+    models give up culling where float sums stop being exact and still equal
+    the plain versions (compared as bits, so NaN targets count)."""
+    m, num_lm = 12, 2
+    inf, nan = np.inf, np.nan
+    rows = np.array([[
+        [5, 5, 4, 16, 1, 1, 9, 9], [3e6, 5, 9e12, 9.1e12, 0, 0, 1, 1],
+        [5, -2e6, 4.1e12, -1, 0, 0, 1, 1], [nan, 5, 4, 16, 1, 1, 9, 9],
+        [6, 6, nan, 9, 2, 2, 8, 8], [7, 7, inf, inf, 3, 3, 9, 9],
+        [2, 2, -0.0, -0.0, 1, 1, 3, 3], [8, 3, nan, nan, 1, 1, 3, 3],
+        [4, 9, 1, 4, -inf, 0, inf, nan]]], F)
+    lm_rows = np.array([[
+        [5, 5, 1], [1e7, 5, 1e14], [nan, 5, 1], [5, nan, 1], [5, 5, nan],
+        [3, 3, inf], [2, 7, -0.0], [-3e6, 6, 9.1e12], [6, 6, 0],
+        [7.5, 7.5, 0.5]]], F)
+    _check_models(rows, lm_rows, m, num_lm, chunk=100)
+    # each row alone too, so that none hides behind another
+    for i in range(rows.shape[1]):
+        _check_models(rows[:, i:i + 1], lm_rows[:, :2], m, num_lm, chunk=100)
+    for i in range(0, lm_rows.shape[1], 2):
+        _check_models(rows[:, :1], lm_rows[:, i:i + 2], m, num_lm, chunk=52)
+
+
+def test_tile_rows_keep_index_order_and_drop_what_cannot_touch():
+    rows = np.zeros((6, 8), F)
+    rows[:, :4] = [[50, 50, 4, 16], [3, 3, 4, 16], [40, 4, -1, 9],
+                   [3, 3, -1, -1], [20, 20, 400, -1], [33, 9, 1, 1]]
+    assert tile_rows(rows, 0, 0, 60) == [1, 4, 5]
+    assert tile_rows(rows, 32, 0, 60) == [2, 4, 5]
+    assert tile_rows(rows, 32, 48, 60) == [0]
+    assert tile_rows(rows, 0, 56, 60) == []
+
+
+@pytest.mark.parametrize("args,want", [
+    ((60, 5, 32), (1800, 10)), ((60, 5, 1), (1024, 18)),
+    ((8, 1, 3), (64, 1)), ((1, 1, 1), (4, 1)), ((4096, 5, 1), (6140, 13663)),
+    ((60, 5, 256), (6000, 3)), ((125, 5, 2), (1024, 77))])
+def test_landmark_chunk_rule(args, want):
+    chunk, blocks = klabels.landmark_chunk(*args)
+    assert (chunk, blocks) == want
+    per = args[0] * args[0] * args[1]
+    assert chunk % 4 == 0 and 4 <= chunk <= klabels.LM_MAX_CHUNK
+    assert (blocks - 1) * chunk < per <= blocks * chunk
+
+
+@pytest.mark.parametrize("num_lm", [1, 5])
+def test_quarter_pixel_landmarks_identical_to_jax(num_lm):
+    """Landmarks at every quarter of a map pixel (whole px, at stride 4)
+    from outside the patch to outside it again, through ``rasterize`` and
+    JAX's ``rasterize_batch`` called without jit; and the scatter model on
+    the same packed rows."""
+    cfg = LabelCfg(**SMALL)                          # 16 x 16 maps
+    k = 3
+    coords = np.arange(-8, 72, dtype=F)              # px: map -2 .. 17.75
+    xs = np.resize(coords, (k, num_lm, coords.size))
+    lms = np.stack([xs, np.roll(xs, 7, -1) * F(0.5) + F(8)], -1)
+    lms = lms.transpose(2, 0, 1, 3)                  # (B, K, L, 2)
+    b = lms.shape[0]
+    boxes = np.tile(np.array([[20, 20, 40, 40], [10, 8, 30, 28],
+                              [0, 0, 60, 60]], F), (b, 1, 1))   # last: out of band
+    valid = np.ones((b, k), bool)
+    lmv = np.ones((b, k, num_lm), bool)
+    lmv[::5, 0] = False
+    got = _port(boxes, valid, cfg, lms, lmv)
+    want = _jax(rasterize_batch, boxes, valid, JaxLabelCfg(**SMALL), lms, lmv)
+    assert want["lm"].sum() > 0
+    _assert_identical(got, want)
+    lm_rows = klabels.pack_landmarks(*(torch.from_numpy(a) for a in (
+        boxes, valid, lms, lmv)), cfg).numpy()
+    for i in range(0, b, 9):
+        for chunk in (64, 100):
+            model, _ = scatter_landmarks(lm_rows[i], cfg.map_size, num_lm,
+                                         chunk - chunk % 4)
+            np.testing.assert_array_equal(model, got["lm"][i])
+
+
+def test_rasterize_maps_is_both_wrappers():
+    from chip_smoke import label_rows
+
+    rows, lm_rows = (torch.from_numpy(a) for a in label_rows(
+        np.random.RandomState(3), 2, 4, 16, 3))
+    got = klabels.rasterize_maps(rows, lm_rows, 16, 0.08, 3)
+    want = klabels.rasterize_boxes(rows, 16, 0.08) + (
+        klabels.rasterize_landmarks(lm_rows, 16, 3),)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="rasterize_maps"):
+        klabels.rasterize_maps(rows, lm_rows[:1], 16, 0.08, 3)
+    with pytest.raises(ValueError, match="rasterize_maps"):
+        klabels.rasterize_maps(rows, lm_rows[:, :9], 16, 0.08, 3)
+    with pytest.raises(ValueError, match="rasterize_landmarks"):
+        klabels.rasterize_maps(rows, lm_rows, 16, 0.08, 5)

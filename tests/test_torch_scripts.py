@@ -22,7 +22,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-SCRIPTS = ["chip_smoke.py", "profile_port.py"]
+SCRIPTS = ["chip_smoke.py", "profile_port.py",
+           "tools/probes/box_raster_variants.py"]
 PACKAGE = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, "densebox_tpu_torch", "**", "*.py"), recursive=True))
 # modules of the JAX package that the port's package may import: none
@@ -42,7 +43,8 @@ def _imported(path):
 def test_names_no_jax_module(path):
     allowed = PACKAGE_MAY_IMPORT if path in PACKAGE else set()
     bad = [m for m in _imported(path)
-           if m.split(".")[0] in ("jax", "flax", "jaxlib")
+           if m.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "orbax",
+                                  "tensorflow")
            or (m.split(".")[0] == "densebox_tpu" and m not in allowed)]
     assert not bad, f"{path} imports {bad}"
 
@@ -53,18 +55,22 @@ import densebox_tpu_torch
 import densebox_tpu_torch.train, densebox_tpu_torch.data
 import densebox_tpu_torch.infer, densebox_tpu_torch.serve
 import densebox_tpu_torch.ops.labels, densebox_tpu_torch.ops.ohem
+import densebox_tpu_torch.train.checkpoint, densebox_tpu_torch.train.trainer
+import densebox_tpu_torch.utils.logging
 import chip_smoke, profile_port
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "flax", "jaxlib", "optax", "densebox_tpu"))
+             ("jax", "flax", "jaxlib", "optax", "orbax", "tensorflow",
+              "densebox_tpu"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """
 
 
 def test_port_loads_no_jax():
-    """Importing the port (its train and data subpackages and both scripts
-    included) in a fresh interpreter loads no module of jax, flax, jaxlib,
-    optax or the JAX package."""
+    """Importing the port (its train, data and utils subpackages, the
+    trainer, the checkpoints, the logger and both scripts included) in a
+    fresh interpreter loads no module of jax, flax, jaxlib, optax, orbax,
+    tensorflow or the JAX package."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=300)
@@ -115,6 +121,10 @@ def test_resize_products_equal_resize_linear():
      "float*, int, int, float)", "rasterizer_kernel"),
     ("(anonymous namespace)::landmarks_kernel(float const*, float*, int, int, "
      "int)", "rasterizer_kernel"),
+    ("(anonymous namespace)::boxes_kernel((anonymous namespace)::BoxArgs)",
+     "rasterizer_kernel"),
+    ("(anonymous namespace)::maps_kernel((anonymous namespace)::BoxArgs, "
+     "(anonymous namespace)::LmArgs)", "rasterizer_kernel"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::"
      "native::(anonymous namespace)::TensorListMetadata<2>", "optimizer"),
     ("sm90_xmma_wgrad_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc",
