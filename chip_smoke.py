@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detect-and-serve and train paths once on an
-NVIDIA GPU.
+"""Drive the PyTorch port's detect-and-serve and train paths, and its command
+line, once on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -121,7 +121,32 @@ not 0):
      one OHEM launch per step; ms/step through ``fit`` with those
      boundaries (set-up included) and without a workdir from a state made
      beforehand, the set-up's and one checkpoint write's time, beside the
-     card.
+     card;
+ 23. the command line (``densebox_tpu_torch/cli.py``) as a user runs it, on
+     a KITTI-format directory written here: 64 PNG scenes at KITTI's
+     375 x 1242 (this script's own PNG writer, filter 0) with 1-6
+     Car/Van/Truck boxes each plus DontCare lines. ``train`` in-process at
+     the CLI's defaults (full-width kitti_vehicle, f32, B=32, 240 px patches
+     from 384 x 1248 canvases), 12 steps, a checkpoint every 6: rc 0, the
+     logged losses finite, two checkpoints, 12 box-rasterizer and 12 OHEM
+     launches, the loader's backend and how many steps waited on it, ms/step
+     beside phase 20's; the loader alone (batches/s, with the decoder the
+     machine has and with cv2 hidden); ``eval --protocol kitti`` at a
+     threshold from the model's score map: its summary, ``n_gt`` equal to
+     the boxes written, one NMS launch per device call and every call's
+     detections equal to a direct ``detect_batch`` of the same canvas
+     batch; ``quantize --calib-dir`` and ``detect`` of 8 files on the int8
+     workdir with cv2 hidden: one ``qconv_int8`` launch per conv per pyramid
+     level per image, each on the variant ``kernel_variant`` names, the
+     KITTI files written, the note that no annotated image was; ``python3
+     -m densebox_tpu_torch.cli serve`` as a subprocess: /healthz within 120
+     s, 8 PNG bodies posted one at a time each answered as a direct
+     detect of its image alone in slot 0 (under torch's default precision
+     flags, which the server keeps), 413 and 400, /healthz counting 8,
+     SIGINT ending it with rc 0, the latency quartiles on a line of their
+     own; and ``train --landmarks 4`` (width 0.25, 4 steps) then ``detect``
+     of 4 images: one window and one NMS launch per device call, finite
+     landmarks. The phase's time closes it.
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
 lists the seven kernels (with the least time the card could take for the
@@ -144,6 +169,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1690,7 +1716,7 @@ def phase_train(name, cfg, steps, canvas):
     """Phases 20 and 21: train ``cfg`` at full width on synthetic batches
     drawn on the card, B = cfg.train.batch_size. With ``canvas`` the batches
     are 480 px canvases and the step samples its patches on the card.
-    Returns the kernels' launch counts over the timed steps."""
+    Returns the kernels' launch counts over the timed steps and ms/step."""
     import torch
 
     from densebox_tpu_torch import DenseBox
@@ -1750,7 +1776,7 @@ def phase_train(name, cfg, steps, canvas):
     if got != want or not moved > 0:
         raise AssertionError(f"train_{name}: kernel launches {got}, want "
                              f"{want}; parameters moved by {moved}")
-    return launches
+    return launches, wall / steps * 1e3
 
 
 def phase_fit():
@@ -1877,6 +1903,532 @@ def phase_fit():
     return launches
 
 
+# --- the command line (phase 23) ------------------------------------------
+
+KITTI_HW = (375, 1242)          # the image size of the KITTI object set
+KITTI_CANVAS = (384, 1248)      # the CLI's default canvas for it
+VEHICLES = ("Car", "Van", "Truck")
+TORCH_DEFAULTS: dict = {}       # precision flags as torch starts (main())
+
+
+def precision_flags() -> dict:
+    import torch
+
+    return {"cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "bf16_reduced": (torch.backends.cuda.matmul
+                             .allow_bf16_reduced_precision_reduction)}
+
+
+def set_precision_flags(flags: dict) -> None:
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = flags["cudnn_tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = flags["matmul_tf32"]
+    (torch.backends.cuda.matmul
+     .allow_bf16_reduced_precision_reduction) = flags["bf16_reduced"]
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG with every row under filter 0 (none), written with
+    the standard library alone."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def write_kitti_dir(root: str, n: int, seed: int, num_lm: int = 0) -> int:
+    """A KITTI-format directory: ``n`` numpy scenes at KITTI's size with
+    1-6 drawn vehicle boxes each (Car, Van, Truck; truncation, occlusion;
+    with ``num_lm`` the box corners as keypoints, one in five invisible)
+    and 1-2 DontCare regions. Returns the count of vehicle boxes."""
+    rng = np.random.RandomState(seed)
+    h, w = KITTI_HW
+    os.makedirs(os.path.join(root, "image_2"))
+    os.makedirs(os.path.join(root, "label_2"))
+    shade = (np.arange(h, dtype=np.float32) * (50.0 / h))[:, None, None]
+    n_boxes = 0
+    for i in range(n):
+        img = (rng.rand(h, w, 3) * 60 + shade).astype(np.uint8)
+        lines = []
+        for _ in range(rng.randint(1, 7)):
+            bh = rng.uniform(25, 150)
+            bw = bh * rng.uniform(1.2, 2.5)
+            x1, y1 = rng.uniform(0, w - bw - 1), rng.uniform(0, h - bh - 1)
+            img[int(y1):int(y1 + bh), int(x1):int(x1 + bw)] = \
+                rng.randint(120, 256, 3)
+            line = (f"{VEHICLES[rng.randint(3)]} {rng.uniform(0, 0.5):.2f} "
+                    f"{rng.randint(0, 3)} -1.58 {x1:.2f} {y1:.2f} "
+                    f"{x1 + bw:.2f} {y1 + bh:.2f} 1.57 1.73 4.15 1.00 1.75 "
+                    "13.22 -1.62")
+            if num_lm:
+                pts = np.array([[x1, y1], [x1 + bw, y1], [x1 + bw, y1 + bh],
+                                [x1, y1 + bh]] * num_lm)[:num_lm]
+                pts[rng.rand(num_lm) < 0.2] = -1.0
+                line += " " + " ".join(f"{v:.2f}" for v in pts.ravel())
+            lines.append(line)
+            n_boxes += 1
+        for _ in range(rng.randint(1, 3)):
+            dx, dy = rng.uniform(0, w - 80), rng.uniform(0, h - 40)
+            lines.append(f"DontCare -1 -1 -10 {dx:.2f} {dy:.2f} "
+                         f"{dx + 60:.2f} {dy + 30:.2f} -1 -1 -1 -1000 -1000 "
+                         "-1000 -10")
+        write_png(os.path.join(root, "image_2", f"{i:06d}.png"), img)
+        with open(os.path.join(root, "label_2", f"{i:06d}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return n_boxes
+
+
+def run_cli(argv, no_cv2=False):
+    """``cli.main(argv)`` in this process with its stdout and stderr
+    captured (and, with ``no_cv2``, cv2 hidden as on a machine without it).
+    Returns (rc, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from densebox_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    hide = (mock.patch.dict(sys.modules, {"cv2": None}) if no_cv2
+            else contextlib.nullcontext())
+    with hide, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def load_float_model(workdir):
+    from densebox_tpu_torch.models import DenseBox
+    from densebox_tpu_torch.train import load_for_inference
+
+    cfg, sd = load_for_inference(os.path.join(workdir, "ckpt"))
+    model = DenseBox(cfg.model)
+    model.load_state_dict(sd)
+    return cfg, model.eval()
+
+
+def quartiles_ms(seconds):
+    q1, q2, q3 = np.percentile(np.asarray(seconds) * 1e3, [25, 50, 75])
+    return {"median_ms": float(q2), "q1_ms": float(q1), "q3_ms": float(q3)}
+
+
+def http_call(port, method, path, body=None, length=None, timeout=300):
+    """(status, JSON body) of one request to the local server."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if length is None:
+            conn.request(method, path, body=body)
+        else:                   # a header that announces a body, and no body
+            conn.putrequest(method, path)
+            conn.putheader("Content-Length", str(length))
+            conn.endheaders()
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def served_json(model, rgb, infer_cfg, label_cfg, max_batch):
+    """What the server answers for ``rgb`` alone in its device call: a
+    direct ``detect_batch`` of a ``max_batch`` canvas batch with the image
+    in slot 0 and zeros elsewhere, rounded as the front end rounds."""
+    import torch
+
+    from densebox_tpu_torch.infer import detect_batch
+
+    x = np.zeros((max_batch,) + KITTI_CANVAS + (3,), np.float32)
+    h, w = rgb.shape[:2]
+    x[0, :h, :w] = rgb.astype(np.float32) / 255.0
+    with torch.inference_mode():
+        out = {k: v.cpu().numpy() for k, v in detect_batch(
+            model, torch.from_numpy(x).cuda(), infer_cfg, label_cfg).items()}
+    v = out["valid"][0]
+    want = {"n": int(v.sum()),
+            "boxes": np.round(out["boxes"][0][v], 2).tolist(),
+            "scores": np.round(out["scores"][0][v], 4).tolist()}
+    return json.loads(json.dumps(want))
+
+
+def phase_cli(bare_ms: float) -> None:
+    """Phase 23: the command line on the card, as a user runs it, on a
+    KITTI-format directory of PNG files written here."""
+    import contextlib
+    import glob
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    import torch
+
+    from densebox_tpu_torch import eval as port_eval
+    from densebox_tpu_torch import infer as port_infer
+    from densebox_tpu_torch.data import pipeline
+    from densebox_tpu_torch.data.imageio import imread
+    from densebox_tpu_torch.data.kitti import load_dataset
+    from densebox_tpu_torch.infer import detect_batch
+    from densebox_tpu_torch.models.quant import conv_shapes
+    from densebox_tpu_torch.ops.kernels import qconv as kq
+    from densebox_tpu_torch.serve import MAX_BODY_BYTES
+    from densebox_tpu_torch.train import make_manager
+    from densebox_tpu_torch.utils import logging as port_logging
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="densebox_cli_")
+    proc = None
+    try:
+        data, work = os.path.join(root, "kitti"), os.path.join(root, "run")
+        t0 = time.perf_counter()
+        n_written = write_kitti_dir(data, 64, seed=23)
+        write_s = time.perf_counter() - t0
+        images = sorted(glob.glob(os.path.join(data, "image_2", "*.png")))
+        samples = load_dataset(os.path.join(data, "image_2"),
+                               os.path.join(data, "label_2"))
+
+        # 1. train at the CLI's defaults: full-width kitti_vehicle, f32,
+        # B=32, 240 px patches from 384 x 1248 canvases
+        loaders, logged = [], []
+
+        class Recorded(pipeline.PrefetchLoader):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                loaders.append(self)
+
+        real_log = port_logging.MetricsLogger.log
+
+        def log(self, step, metrics, prefix="train"):
+            vals = real_log(self, step, metrics, prefix)
+            logged.append((step, vals))
+            return vals
+
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(pipeline, "PrefetchLoader", Recorded), \
+                mock.patch.object(port_logging.MetricsLogger, "log", log):
+            rc, out, _ = run_cli(["train", "--data-dir", data, "--workdir",
+                                  work, "--steps", "12", "--ckpt-every", "6",
+                                  "--log-every", "6"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_launches()
+        loader = loaders[0]
+        kept = make_manager(os.path.join(work, "ckpt")).all_steps()
+        losses = [v["loss_total"] for _, v in logged]
+        window_ms = 1e3 / logged[-1][1]["steps_per_sec"]
+        want = {"rasterize_boxes": 12, "rasterize_landmarks": 0, "ohem": 12,
+                "nms": 0, "qconv": 0, "requant": 0, "window": 0}
+        emit({"phase": "cli_train", "argv": "train --data-dir D --workdir W "
+              "--steps 12 --ckpt-every 6 --log-every 6",
+              "model": "kitti_vehicle w1.0 f32 (the CLI's defaults)",
+              "batch": 32, "canvas": list(KITTI_CANVAS), "rc": rc,
+              "images": len(samples), "vehicle_boxes": n_written,
+              "png_write_s": write_s, "logged_losses": losses,
+              "checkpoints": kept, "loader_backend": loader.backend,
+              "loader_stats": loader.stats, "launches": launches,
+              "launches_expected": want, "wall_s_with_set_up": train_s,
+              "ms_per_step_steps_7_to_12": window_ms,
+              "bare_step_ms_phase_20": bare_ms, "card": card_line(),
+              "last_line": out.strip().splitlines()[-1][:200]})
+        if rc != 0 or not all(np.isfinite(losses)) or len(losses) != 2:
+            raise AssertionError(f"cli train: rc {rc}, logged {losses}")
+        if kept != [6, 12] or launches != want:
+            raise AssertionError(f"cli train: checkpoints {kept}, launches "
+                                 f"{launches}, want {want}")
+
+        # the loader alone, with the image decoder this machine has and with
+        # cv2 hidden (the port's PNG decoder): batches/s over 4 batches
+        # after the first, and one image's canvas_batch on this thread
+        passes = {}
+        for decoder in ("as installed", "without cv2"):
+            with (mock.patch.dict(sys.modules, {"cv2": None})
+                  if decoder == "without cv2" else contextlib.nullcontext()):
+                it = iter(pipeline.PrefetchLoader(samples, 32, KITTI_CANVAS,
+                                                  16, seed=1))
+                next(it)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    next(it)
+                torch.cuda.synchronize()
+                loader_s = time.perf_counter() - t0
+                it.close()
+                t0 = time.perf_counter()
+                pipeline.canvas_batch(samples[:8], KITTI_CANVAS, 16)
+                decode_ms = (time.perf_counter() - t0) / 8 * 1e3
+            passes[decoder] = {"batches_per_s": 4 / loader_s,
+                               "ms_per_batch": loader_s / 4 * 1e3,
+                               "canvas_batch_ms_per_image": decode_ms}
+        emit({"phase": "cli_loader", "backend": loader.backend, "batch": 32,
+              "canvas": list(KITTI_CANVAS), "cv2": cv2_version(),
+              "passes": passes,
+              "steps_waited_on_loader_in_cli_train": loader.stats["waited"],
+              "of_steps": loader.stats["batches"],
+              "bare_step_ms_phase_20": bare_ms, "card": card_line()})
+
+        # 2. eval --protocol kitti, a threshold at which candidates reach NMS
+        cfg, model = load_float_model(work)
+        first = pipeline.canvas_batch(samples[:8], KITTI_CANVAS, 64)
+        thresh = with_live_threshold(model, first["image"].cuda(),
+                                     cfg.infer).score_thresh
+        infer_cfg = dataclasses.replace(cfg.infer, score_thresh=thresh)
+        recorded = []
+        real_d2n = port_eval.detections_to_numpy
+
+        def d2n(dets, gb, gv):
+            recorded.append({k: v.clone() for k, v in dets.items()})
+            return real_d2n(dets, gb, gv)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(port_eval, "detections_to_numpy", d2n):
+            rc, out, _ = run_cli(["eval", "--workdir", work, "--data-dir",
+                                  data, "--protocol", "kitti",
+                                  f"--thresh={thresh!r}"])
+        eval_s = time.perf_counter() - t0
+        launches = read_launches()
+        summary = json.loads(out.strip().splitlines()[-1])
+        differs = []
+        for c, dets in enumerate(recorded):
+            b = pipeline.canvas_batch(samples[8 * c:8 * c + 8], KITTI_CANVAS,
+                                      64)
+            with torch.inference_mode():
+                d = detect_batch(model, b["image"].cuda(), infer_cfg,
+                                 cfg.label)
+            if not all(torch.equal(d[k], dets[k]) for k in dets):
+                differs.append(c)
+        want = {"nms": len(recorded), "qconv": 0, "window": 0}
+        got = {k: launches[k] for k in want}
+        emit({"phase": "cli_eval", "argv": "eval --workdir W --data-dir D "
+              "--protocol kitti --thresh T", "rc": rc, "thresh": thresh,
+              "summary": summary, "vehicle_boxes_written": n_written,
+              "device_calls": len(recorded), "launches": got,
+              "launches_expected": want,
+              "calls_differing_from_direct_detect": differs,
+              "seconds": eval_s})
+        if rc != 0 or summary["n_gt"] != n_written or summary["n_images"] \
+                != 64 or not summary["n_pred"] or len(recorded) != 8:
+            raise AssertionError(f"cli eval: rc {rc}, {summary}")
+        if got != want or differs:
+            raise AssertionError(f"cli eval: launches {got} (want {want}); "
+                                 f"calls differing from a direct detect "
+                                 f"{differs}")
+
+        # 3. quantize, then detect 8 files on the int8 workdir, without cv2
+        q, kit = os.path.join(root, "q"), os.path.join(root, "kitti_out")
+        rc_q, out_q, _ = run_cli(["quantize", "--workdir", work, "--out", q,
+                                  "--calib-dir",
+                                  os.path.join(data, "image_2")])
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["detect", "--workdir", q, "--image",
+                                *images[:8], "--out",
+                                os.path.join(root, "dets"), "--save-kitti",
+                                kit, f"--thresh={thresh!r}"], no_cv2=True)
+        detect_s = time.perf_counter() - t0
+        launches, variants = read_launches(), dict(kq.variant_launches)
+        shapes = conv_shapes(cfg.model)
+        calls = 8 * len(cfg.infer.scales)         # one forward per level
+        want_variants = {}
+        for cout, cin, k, _ in shapes.values():
+            v = kq.kernel_variant(cin, cout, k)
+            want_variants[v] = want_variants.get(v, 0) + calls
+        want = {"nms": 8, "qconv": len(shapes) * calls, "requant": 0,
+                "window": 0}
+        got = {k: launches[k] for k in want}
+        counts = [int(n) for n in re.findall(r": (\d+) detections", out)]
+        files = sorted(os.listdir(kit)) if os.path.isdir(kit) else []
+        lines = [len(open(os.path.join(kit, f)).read().splitlines())
+                 for f in files]
+        notes = err.count("no annotated image written")
+        emit({"phase": "cli_int8_detect", "argv": "quantize --workdir W --out "
+              "Q --calib-dir D; detect --workdir Q --image <8> --save-kitti K",
+              "rc_quantize": rc_q, "quantize_said": out_q.strip()[-160:],
+              "rc": rc, "detections_per_image": counts,
+              "kitti_files": len(files), "kitti_lines": lines,
+              "annotated_image_notes": notes, "launches": got,
+              "launches_expected": want, "qconv_variants": variants,
+              "qconv_variants_expected": want_variants, "seconds": detect_s})
+        if rc_q != 0 or rc != 0 or len(counts) != 8 or lines != counts:
+            raise AssertionError(f"cli int8 detect: rc {rc_q}/{rc}, "
+                                 f"detections {counts}, KITTI lines {lines}")
+        if got != want or variants != want_variants or notes != 8:
+            raise AssertionError(f"cli int8 detect: launches {got} "
+                                 f"{variants}, want {want} {want_variants}; "
+                                 f"{notes} notes")
+
+        # 4. serve as a subprocess through the normal entry point
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        serve_log = os.path.join(root, "serve.log")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        with open(serve_log, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "densebox_tpu_torch.cli", "serve",
+                 "--workdir", work, "--canvas", *map(str, KITTI_CANVAS),
+                 "--port", str(port), f"--thresh={thresh!r}"],
+                cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        health = None
+        while health is None and time.perf_counter() - t0 < 120:
+            if proc.poll() is not None:
+                break
+            try:
+                health = http_call(port, "GET", "/healthz", timeout=5)[1]
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        if health is None:
+            raise AssertionError(f"cli serve: no /healthz within 120 s "
+                                 f"(rc {proc.poll()}): "
+                                 f"{open(serve_log).read()[-2000:]}")
+        responses, lat = [], []
+        for path in images[:8]:
+            with open(path, "rb") as f:
+                body = f.read()
+            t = time.perf_counter()
+            responses.append(http_call(port, "POST", "/detect", body))
+            lat.append(time.perf_counter() - t)
+        big = http_call(port, "POST", "/detect", length=MAX_BODY_BYTES + 1)
+        junk = http_call(port, "POST", "/detect", b"not an image")
+        health_after = http_call(port, "GET", "/healthz")[1]
+        proc.send_signal(signal.SIGINT)
+        t0 = time.perf_counter()
+        rc = proc.wait(30)
+        stop_s = time.perf_counter() - t0
+        proc = None
+        # the server runs with torch's own precision flags (cuDNN's f32
+        # convolutions on TF32); the direct detect takes the same
+        flags = precision_flags()
+        set_precision_flags(TORCH_DEFAULTS)
+        try:
+            served_cfg = dataclasses.replace(cfg.infer, score_thresh=thresh)
+            wants = [served_json(model, imread(p), served_cfg, cfg.label, 8)
+                     for p in images[:8]]
+        finally:
+            set_precision_flags(flags)
+        equal = [r == (200, w) for r, w in zip(responses, wants)]
+        emit({"phase": "cli_serve", "argv": "python3 -m "
+              "densebox_tpu_torch.cli serve --workdir W --canvas 384 1248 "
+              "--port P --thresh T", "seconds_to_healthz": up_s,
+              "health_before": health, "health_after": health_after,
+              "statuses": [r[0] for r in responses],
+              "detections": [r[1].get("n") for r in responses],
+              "responses_equal_direct_detect": equal,
+              "oversize": big, "garbage": junk, "rc_after_sigint": rc,
+              "seconds_to_stop": stop_s,
+              "torch_default_flags_in_server": TORCH_DEFAULTS})
+        emit({"phase": "cli_serve_latency", "requests": len(lat),
+              "sequential": True, "canvas": list(KITTI_CANVAS),
+              "max_batch": 8, "body": "375x1242 PNG (filter 0), ~1.4 MB",
+              **quartiles_ms(lat), "card": card_line()})
+        if not all(equal) or not any(r[1].get("n") for r in responses):
+            bad = [i for i, e in enumerate(equal) if not e]
+            raise AssertionError(
+                f"cli serve: responses {bad} differ from a direct detect: "
+                f"{[responses[i] for i in bad][:1]} against "
+                f"{[wants[i] for i in bad][:1]}")
+        if big[0] != 413 or junk[0] != 400 or rc != 0 or \
+                health_after["requests"] != 8 or health_after["status"] != "ok":
+            raise AssertionError(f"cli serve: 413 {big}, 400 {junk}, rc {rc}, "
+                                 f"health {health_after}")
+
+        # 5. landmarks: train --landmarks 4, then detect, so that the window
+        # kernel is on the CLI's path
+        lm_data, lm_work = (os.path.join(root, "kitti_lm"),
+                            os.path.join(root, "run_lm"))
+        write_kitti_dir(lm_data, 16, seed=24, num_lm=4)
+        reset_launches()
+        rc_t, _, _ = run_cli(["train", "--data-dir", lm_data, "--workdir",
+                              lm_work, "--landmarks", "4", "--width-mult",
+                              "0.25", "--steps", "4", "--batch-size", "8",
+                              "--ckpt-every", "4", "--log-every", "2"])
+        train_launches = read_launches()
+        lm_cfg, lm_model = load_float_model(lm_work)
+        lm_images = sorted(glob.glob(os.path.join(lm_data, "image_2",
+                                                  "*.png")))[:4]
+        lm_first = pipeline.canvas_batch(
+            load_dataset(os.path.join(lm_data, "image_2"),
+                         os.path.join(lm_data, "label_2"))[:4],
+            KITTI_CANVAS, 16)
+        lm_thresh = with_live_threshold(lm_model, lm_first["image"].cuda(),
+                                        lm_cfg.infer).score_thresh
+        outs = []
+        real_make = port_infer.make_detect_fn
+
+        def make(model_, infer_cfg_, label_cfg_):
+            fn = real_make(model_, infer_cfg_, label_cfg_)
+
+            def recording(x):
+                o = fn(x)
+                outs.append({k: v.clone() for k, v in o.items()})
+                return o
+
+            return recording
+
+        reset_launches()
+        with mock.patch.object(port_infer, "make_detect_fn", make):
+            rc, out, _ = run_cli(["detect", "--workdir", lm_work, "--image",
+                                  *lm_images, "--out",
+                                  os.path.join(root, "dets_lm"),
+                                  f"--thresh={lm_thresh!r}"], no_cv2=True)
+        launches = read_launches()
+        want_train = {"rasterize_boxes": 4, "rasterize_landmarks": 4,
+                      "ohem": 8}
+        got_train = {k: train_launches[k] for k in want_train}
+        want = {"nms": 4, "window": 4}
+        got = {k: launches[k] for k in want}
+        finite = bool(outs) and all(
+            torch.isfinite(o["lm_points"]).all().item() for o in outs)
+        emit({"phase": "cli_landmarks", "argv": "train --landmarks 4 "
+              "--width-mult 0.25 --steps 4 --batch-size 8; detect <4>",
+              "rc_train": rc_t, "rc_detect": rc,
+              "train_launches": got_train,
+              "train_launches_expected": want_train,
+              "detect_launches": got, "detect_launches_expected": want,
+              "device_calls": len(outs), "lm_points_finite": finite,
+              "lm_points_shape": (list(outs[0]["lm_points"].shape)
+                                  if outs else None),
+              "detections": [int(o["valid"].sum()) for o in outs],
+              "lm_valid": [int(o["lm_valid"].sum()) for o in outs]})
+        if rc_t != 0 or rc != 0 or got_train != want_train or got != want \
+                or len(outs) != 4 or not finite:
+            raise AssertionError(f"cli landmarks: rc {rc_t}/{rc}, launches "
+                                 f"{got_train} {got}, {len(outs)} calls, "
+                                 f"finite {finite}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "cli_seconds", "seconds": time.perf_counter() - t_phase})
+
+
+def cv2_version():
+    """cv2's version where it imports, else None."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2.__version__
+
+
 def conv_library_ms(args) -> float:
     """One PyTorch call for the int8 conv's function, as its yardstick: the
     same int8 values as bf16 through ``F.conv2d`` (cuDNN; int8 codes are
@@ -1902,6 +2454,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import densebox_tpu_torch  # noqa: F401  (alone, without the repo: fail here, silent)
 
+    # what a process of the port runs with unless it sets them (the CLI's
+    # server subprocess, phase 23)
+    TORCH_DEFAULTS.update(precision_flags())
     # f32 parity runs at full f32, as the JAX reference's Precision.HIGHEST
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1944,9 +2499,11 @@ def main() -> int:
     phase_step_card_vs_cpu()
     phase_step_repeats()
     (_, kitti), (_, malf) = train_cfgs()
-    launches["train_kitti"] = phase_train("kitti_vehicle", kitti, 30, False)
-    launches["train_malf"] = phase_train("malf_face", malf, 12, True)
+    launches["train_kitti"], bare_ms = phase_train("kitti_vehicle", kitti, 30,
+                                                   False)
+    launches["train_malf"], _ = phase_train("malf_face", malf, 12, True)
     launches["fit"] = phase_fit()
+    phase_cli(bare_ms)
 
     # (name, source, TPU kernel it replaces, the main-path run its launch
     # count is read from, its counter)

@@ -20,8 +20,11 @@ GT rasterization and OHEM selection on hand-written CUDA kernels
 relu+dropout, on-device patch sampling and synthetic data (data/), the SGD
 step (train/loop.py) and the trainer around it: ``fit`` with checkpoints,
 exact resume and the divergence check (train/trainer.py,
-train/checkpoint.py), metric logging (utils/logging.py). See ROADMAP.md for
-the slices to come.
+train/checkpoint.py), metric logging (utils/logging.py) — and the command
+line (cli.py: train, detect, quantize, serve, eval) with the host modules
+behind it: the KITTI reader, the loader and its native core, image decoding
+(data/), eval (eval.py), drawing (utils/viz.py) and the HTTP front end
+(serve.py). See ROADMAP.md for the slices to come.
 
 Public functions take and return the JAX package's layouts: NHWC images and
 maps, (B, K, 4) xyxy boxes.

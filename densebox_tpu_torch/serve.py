@@ -12,12 +12,17 @@ Same contract as the JAX server:
   * ``stats`` counts requests and device calls.
 
 The batch is assembled in one pinned host buffer and copied to the model's
-device without blocking. An HTTP front end needs only ``submit`` and
-``stats`` of this server.
+device without blocking.
+
+``make_http_server`` puts the JAX package's stdlib HTTP front end before it
+(``python -m densebox_tpu_torch.cli serve``): POST /detect with an encoded
+image body (decoded by ``data/imageio.py``: PNG without cv2) -> JSON
+detections; GET /healthz -> status, ``stats`` and model info.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -26,8 +31,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from densebox_tpu_torch.data.imageio import imdecode, resize_area
 from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.infer.detector import make_detect_fn
+
+# /detect body cap: an encoded image tops out in the low MBs; a larger body
+# is a client bug or abuse and is refused with 413 before it is read
+MAX_BODY_BYTES = 32 * 1024 * 1024
 
 
 class DetectServer:
@@ -68,17 +78,8 @@ class DetectServer:
         hc, wc = self.canvas_hw
         h, w = img.shape[:2]
         f = min(1.0, hc / h, wc / w)
-        if f < 1.0:
-            try:
-                import cv2
-            except ImportError as e:
-                raise ImportError(
-                    f"a {h}x{w} image is larger than the {hc}x{wc} canvas; "
-                    "downscaling it needs OpenCV (cv2), which is not "
-                    "installed — send images no larger than the canvas"
-                ) from e
-            img = cv2.resize(img, (int(w * f), int(h * f)),
-                             interpolation=cv2.INTER_AREA)
+        if f < 1.0:           # needs cv2, and raises ImportError without it
+            img = resize_area(img, (int(w * f), int(h * f)))
             h, w = img.shape[:2]
         canvas = np.zeros((hc, wc, 3), np.float32)
         canvas[:h, :w] = img
@@ -170,3 +171,79 @@ class DetectServer:
                 for _, _, done, slot in batch:
                     slot["error"] = f"{type(e).__name__}: {e}"
                     done.set()
+
+
+def make_http_server(server: DetectServer, host: str, port: int,
+                     info: Optional[dict] = None):
+    """The stdlib HTTP front end over ``server``, bound but not serving (port
+    0 picks a free port: read it from ``.server_address``). POST /detect
+    (an encoded image body) -> {"n", "boxes", "scores"} and, for a landmark
+    model, "lm_points" and "lm_valid", in the image's own coordinates (boxes
+    and points rounded to 2 decimals, scores to 4); 400 for a body that does
+    not decode (or, without cv2, one that only cv2 could decode or
+    downscale), 413 over ``MAX_BODY_BYTES``, 500 when the server fails.
+    GET /healthz -> {"status": "ok", **stats, **info}."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet; serving logs are the caller's
+            pass
+
+        def _json(self, code: int, obj: dict) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {"status": "ok", **server.stats,
+                                 **(info or {})})
+            else:
+                self._json(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if self.path != "/detect":
+                self._json(404, {"error": "unknown path"})
+                return
+            n = int(self.headers.get("Content-Length", 0))
+            if n > MAX_BODY_BYTES:
+                self._json(413, {"error": "request body too large "
+                                          f"(max {MAX_BODY_BYTES} bytes)"})
+                return
+            raw = self.rfile.read(n)
+            try:
+                img = imdecode(raw)
+                if img is None:
+                    self._json(400, {"error": "could not decode image"})
+                    return
+                dets = server.submit(img.astype(np.float32) / 255.0)
+            except ImportError as e:     # a format or size only cv2 handles
+                self._json(400, {"error": str(e)})
+                return
+            except (TimeoutError, RuntimeError) as e:
+                self._json(500, {"error": str(e)})
+                return
+            resp = {"n": int(len(dets["boxes"])),
+                    "boxes": np.round(dets["boxes"], 2).tolist(),
+                    "scores": np.round(dets["scores"], 4).tolist()}
+            if "lm_points" in dets:
+                resp["lm_points"] = np.round(dets["lm_points"], 2).tolist()
+                resp["lm_valid"] = dets["lm_valid"].tolist()
+            self._json(200, resp)
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def serve_forever(httpd, stop_event: Optional[threading.Event] = None,
+                  poll_s: float = 0.25) -> None:
+    """Serve until ``stop_event`` is set (or forever); the socket is closed
+    on the way out, by an exception too."""
+    httpd.timeout = poll_s
+    try:
+        while stop_event is None or not stop_event.is_set():
+            httpd.handle_request()
+    finally:
+        httpd.server_close()

@@ -1,18 +1,23 @@
-"""Metrics logging (port of ``densebox_tpu/utils/logging.py:MetricsLogger``).
+"""Metrics logging, profiling and debug checks (port of
+``densebox_tpu/utils/logging.py``).
 
 Per-step metric dicts go to the console, and to TensorBoard scalars when a
 log directory is given and ``tensorboardX`` imports (it is imported only
-then, and ``tensorflow`` never is). The JAX package's ``maybe_profile`` and
-``enable_debug_checks`` wrap jax's profiler and its NaN-check flag and have
-no counterpart here: ``torch.profiler`` is used directly where a trace is
-wanted (``profile_port.py``), and ``TrainingDiverged`` is the trainer's
-check for non-finite values.
+then, and ``tensorflow`` never is). ``maybe_profile`` traces a window with
+``torch.profiler`` into a Chrome trace file, and ``enable_debug_checks``
+turns on autograd's anomaly detection (a backward that produces NaN raises
+and names the forward op), the counterparts of jax's profiler trace and its
+NaN-check flag.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict, Mapping, Optional
+
+import torch
 
 
 def _summary_writer(logdir: str):
@@ -53,3 +58,33 @@ class MetricsLogger:
         if self._writer is not None:
             self._writer.close()
             self._writer = None
+
+
+@contextlib.contextmanager
+def maybe_profile(logdir: Optional[str]):
+    """Trace the window with ``torch.profiler`` (host and, where there is a
+    card, device activity) and write ``<logdir>/trace_<pid>.json``, a Chrome
+    trace that TensorBoard's profile plugin and Perfetto read. No-op for an
+    empty ``logdir``."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(logdir, f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    print(f"wrote profiler trace {path}", flush=True)
+
+
+def enable_debug_checks() -> None:
+    """Debug mode: autograd anomaly detection for the rest of the process.
+    A backward that produces NaN raises, with the traceback of the forward
+    op that made it; every backward runs slower. The trainer's boundary
+    check (``TrainingDiverged``) stays on either way."""
+    torch.autograd.set_detect_anomaly(True)

@@ -56,7 +56,11 @@ import densebox_tpu_torch.train, densebox_tpu_torch.data
 import densebox_tpu_torch.infer, densebox_tpu_torch.serve
 import densebox_tpu_torch.ops.labels, densebox_tpu_torch.ops.ohem
 import densebox_tpu_torch.train.checkpoint, densebox_tpu_torch.train.trainer
-import densebox_tpu_torch.utils.logging
+import densebox_tpu_torch.utils.logging, densebox_tpu_torch.utils.viz
+import densebox_tpu_torch.cli, densebox_tpu_torch.eval
+import densebox_tpu_torch.native
+import densebox_tpu_torch.data.kitti, densebox_tpu_torch.data.pipeline
+import densebox_tpu_torch.data.imageio
 import chip_smoke, profile_port
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "jaxlib", "optax", "orbax", "tensorflow",
@@ -68,14 +72,39 @@ sys.exit(1 if bad else 0)
 
 def test_port_loads_no_jax():
     """Importing the port (its train, data and utils subpackages, the
-    trainer, the checkpoints, the logger and both scripts included) in a
-    fresh interpreter loads no module of jax, flax, jaxlib, optax, orbax,
-    tensorflow or the JAX package."""
+    trainer, the checkpoints, the logger, the command line, eval, the KITTI
+    reader, the loader and its native core, the image decoder and both
+    scripts included) in a fresh interpreter loads no module of jax, flax,
+    jaxlib, optax, orbax, tensorflow or the JAX package."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+def test_import_rule_covers_the_command_line_modules():
+    """The static check above runs over every module of the command line's
+    slice (the parametrisation is a glob of the package)."""
+    for path in ("cli.py", "eval.py", "native/__init__.py", "data/kitti.py",
+                 "data/pipeline.py", "data/imageio.py", "utils/viz.py",
+                 "utils/logging.py", "serve.py"):
+        assert os.path.join("densebox_tpu_torch", path) in PACKAGE, path
+    assert "chip_smoke.py" in SCRIPTS
+
+
+_CV2_AT_TOP = ("cli.py", "eval.py", "serve.py", "data/imageio.py",
+               "data/pipeline.py", "data/kitti.py", "utils/viz.py")
+
+
+@pytest.mark.parametrize("path", _CV2_AT_TOP)
+def test_cv2_is_imported_only_inside_functions(path):
+    tree = ast.parse(open(os.path.join(REPO, "densebox_tpu_torch", path))
+                     .read(), path)
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top for a in n.names] + [
+        n.module for n in top if isinstance(n, ast.ImportFrom)]
+    assert "cv2" not in names, f"{path} imports cv2 at module level"
 
 
 @pytest.mark.parametrize("script", SCRIPTS)
