@@ -146,7 +146,30 @@ not 0):
      SIGINT ending it with rc 0, the latency quartiles on a line of their
      own; and ``train --landmarks 4`` (width 0.25, 4 steps) then ``detect``
      of 4 images: one window and one NMS launch per device call, finite
-     landmarks. The phase's time closes it.
+     landmarks. The phase's time closes it;
+ 24. multi-device (``parallel/``), kitti_vehicle() at full width, f32, TF32
+     off: (a) a one-rank NCCL group in this process: the sharded train step
+     at B=32, 240 px equal bit for bit to the bare step of the same state,
+     batch and draws (parameters, momentum, every metric); both timed in
+     turns; ``fit(use_mesh=True)`` 8 steps with checkpoints, ms/step; (b)
+     two and four processes sharing the one card over a gloo group on CUDA
+     tensors (NCCL refuses two ranks on one device): gloo's all_reduce
+     (f32, f64) and broadcast on CUDA tensors checked, then DP 2 and DP x
+     TP 2 x 2 steps on the same B=32 global batch against the bare step
+     (parameters within 2e-6, loss within 1e-5, counts equal, ranks
+     bit-equal), one box-rasterizer and one OHEM launch per rank, ms/step
+     while sharing the card (contention, not scaling); a ``SpatialDenseBox``
+     detect of a B=2 batch of 384 x 1248 canvases at the preset's 4 scales
+     over the 2 and 4 ranks: scale-1 maps within 2e-5 of the local forward,
+     the same valid slots, boxes within 1e-3, one NMS launch per rank; (c)
+     ``torchrun --standalone --nproc_per_node 1 -m densebox_tpu_torch.cli
+     train --synthetic`` (NCCL, world 1), 3 steps and a checkpoint;
+ 25. the turbo_int8 cell (B=8, 480 x 640, one scale) with
+     ``QuantDenseBox(backend='xla')`` (the JAX package's default chain):
+     every int8 code, int32 accumulator and map on the card equal to the
+     CPU's; 14 ``qconv_int8`` launches per device call, all in int32 mode,
+     no ``requant_epilogue``; the device call of 'fused' and 'xla' timed in
+     turns, median (q1, q3).
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
 lists the seven kernels (with the least time the card could take for the
@@ -154,7 +177,9 @@ same bytes or operations, from the published peaks of an H100 SXM, and one
 PyTorch call's time where one computes the same function; ``ms`` is device
 time by CUDA-graph replay for the int8 conv, the window gather, the
 rasterizers and OHEM, which also carry ``floor_ms``, an empty launch of their
-grid), after the card line again; the last line is {"ok": true, "device": {...}}.
+grid, and their launches on phase 24's and 25's paths as
+``launches_<run>``), after the card line again and the script's seconds;
+the last line is {"ok": true, "device": {...}}.
 
 Weights are random (torch.Generator seeds), so detections are not
 meaningful objects: the score threshold of the serve phases is set from
@@ -2420,6 +2445,420 @@ def phase_cli(bare_ms: float) -> None:
     emit({"phase": "cli_seconds", "seconds": time.perf_counter() - t_phase})
 
 
+# --- multi-device (phase 24) and the 'xla' int8 chain (phase 25) ----------
+
+# the parity flags of main(), for the processes phase 24 spawns
+PARITY_FLAGS = {"cudnn_tf32": False, "matmul_tf32": False,
+                "bf16_reduced": False}
+MULTI_CANVAS = (384, 1248)      # the CLI's KITTI canvas, 4 scales
+
+
+def _multi_rank(rank: int, world: int, workdir: str, n_model: int) -> None:
+    """One of ``world`` processes sharing the card over a gloo group (NCCL
+    refuses two ranks on one device): the collectives of ``parallel/`` on
+    CUDA tensors, one sharded train step of kitti_vehicle() at B=32 global
+    (``n_model`` > 1: data x tensor parallel) and 3 more timed, then a
+    ``SpatialDenseBox`` detect over all ranks and its scale-1 maps; saves
+    what it saw to ``workdir/rank<r>_<world>.pt``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from densebox_tpu_torch import DenseBox, kitti_vehicle
+    from densebox_tpu_torch.infer import detect_batch
+    from densebox_tpu_torch.parallel import (SpatialDenseBox, make_mesh,
+                                             make_sharded_train_step,
+                                             spatial_forward, unshard_state)
+    from densebox_tpu_torch.train import create_train_state
+
+    set_precision_flags(PARITY_FLAGS)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/pg{world}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=300))
+    try:
+        out = {"collectives": {}}
+        want = float(sum(range(1, world + 1)))
+        for dtype in (torch.float32, torch.float64):
+            t = torch.full((8,), rank + 1.0, device="cuda", dtype=dtype)
+            dist.all_reduce(t)
+            out["collectives"][f"all_reduce_{dtype}"] = bool(
+                (t == want).all())
+        t = torch.full((8,), float(rank), device="cuda")
+        dist.broadcast(t, src=world - 1)
+        out["collectives"]["broadcast_float32"] = bool(
+            (t == world - 1).all())
+
+        cfg = kitti_vehicle()
+        data = torch.load(os.path.join(workdir, "data.pt"))
+        batch = {k: v.cuda() for k, v in data["batch"].items()}
+        model = DenseBox(cfg.model)
+        state = create_train_state(model, cfg)
+        mesh = make_mesh(n_model=n_model)
+        step, place_state, place_batch = make_sharded_train_step(
+            model, cfg, mesh, state, tensor_parallel=n_model > 1)
+        state = place_state(state)
+        local = place_batch(batch)
+        reset_launches()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        out["launches_step"] = read_launches()
+        out["metrics"] = {k: float(v) for k, v in m.items()}
+        sd, mom = unshard_state(state, mesh)
+        if rank == 0:
+            out["sd"] = {k: v.cpu() for k, v in sd.items()}
+        out["digest"] = {k: float(v.double().sum()) for k, v in sd.items()}
+        out["mesh"] = mesh.shape
+        out["rows"] = int(local["image"].shape[0])
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, m = step(state, local)
+        float(m["loss_total"])
+        out["ms_per_step_sharing_the_card"] = (time.perf_counter() - t0) / 3e-3
+        del state, model, step, sd, mom
+        torch.cuda.empty_cache()
+
+        det = DenseBox(cfg.model)
+        det.load_state_dict(float_state(cfg.model, seed=5, loc_bias=1.0))
+        det.eval()
+        canvas = data["canvas"].cuda()
+        infer = dataclasses.replace(cfg.infer, score_thresh=data["thresh"])
+        dist.barrier()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            dets = detect_batch(SpatialDenseBox(det), canvas, infer,
+                                cfg.label)
+        torch.cuda.synchronize()
+        out["detect_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches_detect"] = read_launches()
+        out["dets"] = {k: v.cpu() for k, v in dets.items()}
+        maps = spatial_forward(det, canvas)     # every rank takes part
+        if rank == 0:
+            out["maps"] = {k: v.cpu() for k, v in maps.items()}
+        torch.save(out, os.path.join(workdir, f"rank{rank}_{world}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multi_device(bare_ms: float):
+    """Phase 24 (see the docstring). Returns the launches of the new paths
+    by run, for the kernels line."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from densebox_tpu_torch import DenseBox, kitti_vehicle
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.infer import detect_batch
+    from densebox_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from densebox_tpu_torch.parallel.multihost import run_processes
+    from densebox_tpu_torch.train import (create_train_state, fit,
+                                          make_train_step)
+    from densebox_tpu_torch.train.trainer import data_parallel_ranks
+
+    t_phase = time.perf_counter()
+    cfg = kitti_vehicle()
+    b = cfg.train.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(2400)
+    batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes)
+    root = tempfile.mkdtemp(prefix="densebox_multi_")
+    launches = {}
+    try:
+        # (a) a one-rank NCCL group in this process: the sharded step against
+        # the bare step, bit for bit, from the same state, batch and draws
+        model = DenseBox(cfg.model)
+        state = create_train_state(model, cfg)
+        init = ({k: v.clone() for k, v in model.state_dict().items()},
+                {k: v.clone() for k, v in state.momentum.items()})
+        bare_step = make_train_step(model, cfg)
+        state, m_bare = bare_step(state, batch)
+        after = ({k: v.clone() for k, v in model.state_dict().items()},
+                 {k: v.clone() for k, v in state.momentum.items()})
+        state.load(init[0], init[1], 0)
+        dist.init_process_group("nccl", init_method=f"file://{root}/pg1",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            step, place_state, place_batch = make_sharded_train_step(
+                model, cfg, mesh, state)
+            state = place_state(state)
+            reset_launches()
+            state, m_sh = step(state, place_batch(batch))
+            torch.cuda.synchronize()
+            launches["nccl_world1_step"] = read_launches()
+            same = (all(torch.equal(v, after[0][k])
+                        for k, v in model.state_dict().items())
+                    and all(torch.equal(v, after[1][k])
+                            for k, v in state.momentum.items()))
+            metrics_same = {k: bool(torch.equal(m_bare[k], m_sh[k]))
+                            for k in m_bare}
+
+            def ms_per_step(fn):
+                fn(state, batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    _, m = fn(state, batch)
+                float(m["loss_total"])
+                return (time.perf_counter() - t0) / 5e-3
+
+            turns = {"bare": [], "sharded_world1": []}
+            for name in ("bare", "sharded_world1", "sharded_world1", "bare"):
+                turns[name].append(ms_per_step(
+                    bare_step if name == "bare" else step))
+
+            def batches(i):
+                g = torch.Generator(device="cuda").manual_seed(2500 + i)
+                return synthetic_batch(g, b, cfg.label, cfg.train.max_boxes)
+
+            fcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, log_every=4, ckpt_every=2, ckpt_keep=2))
+            fresh = create_train_state(DenseBox(cfg.model), cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit(fcfg, batches, os.path.join(root, "fit"), num_steps=8,
+                      sample_from_canvas=False, use_mesh=True,
+                      init_state=fresh)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) / 8e-3
+            kept = sorted(os.listdir(os.path.join(root, "fit", "ckpt")))
+            dp_ranks = data_parallel_ranks(cfg)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        emit({"phase": "multi_nccl_world1", "backend": backend,
+              "model": "kitti_vehicle w1.0 f32", "batch": b,
+              "patch": cfg.label.patch_size, "tf32": False,
+              "sharded_step_bit_equal_to_bare": same,
+              "metrics_bit_equal": metrics_same,
+              "ms_per_step_in_turns": turns,
+              "bare_ms_phase20": bare_ms,
+              "fit_use_mesh_ms_per_step": fit_ms,
+              "fit_dp_ranks": dp_ranks,
+              "fit_checkpoints": kept,
+              "fit_last_metrics": res.last_metrics, "card": card_line()})
+        if not same or not all(metrics_same.values()):
+            raise AssertionError(f"one-rank NCCL step differs from the bare "
+                                 f"step: state {same}, {metrics_same}")
+        if kept != ["step_00000006.pt", "step_00000008.pt"] or not all(
+                np.isfinite(v) for v in res.last_metrics.values()):
+            raise AssertionError(f"fit(use_mesh): {kept}, {res.last_metrics}")
+        want_sd = {k: v.cpu() for k, v in after[0].items()}
+        want_m = {k: float(v) for k, v in m_bare.items()}
+        del model, state, step, bare_step, after, init, fresh, res
+        torch.cuda.empty_cache()
+
+        # the single-device detect the spatial runs are held to
+        canvas = np.zeros((2,) + MULTI_CANVAS + (3,), np.float32)
+        for i, img in enumerate(request_images(2, MULTI_CANVAS, seed=24)):
+            canvas[i, :img.shape[0], :img.shape[1]] = img
+        canvas = torch.from_numpy(canvas)
+        det = init_model(cfg.model, "cuda", seed=5, loc_bias=1.0)
+        infer = with_live_threshold(det, canvas.cuda(), cfg.infer)
+        with torch.inference_mode():
+            want_det = {k: v.cpu() for k, v in detect_batch(
+                det, canvas.cuda(), infer, cfg.label).items()}
+            want_maps = {k: v.cpu() for k, v in det(canvas.cuda()).items()}
+        del det
+        torch.cuda.empty_cache()
+        torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                    "canvas": canvas, "thresh": infer.score_thresh},
+                   os.path.join(root, "data.pt"))
+
+        # (b) two and four processes sharing the card over gloo
+        for world, n_model in ((2, 1), (4, 2)):
+            t0 = time.perf_counter()
+            run_processes(_multi_rank, world, (world, root, n_model),
+                          timeout=600)
+            wall = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(root, f"rank{r}_{world}.pt"))
+                     for r in range(world)]
+            got_sd = ranks[0]["sd"]
+            param_err = max(float((got_sd[k] - want_sd[k]).abs().max())
+                            for k in want_sd)
+            loss_err = max(abs(r["metrics"]["loss_total"]
+                               - want_m["loss_total"]) for r in ranks)
+            counts_equal = all(r["metrics"][k] == want_m[k] for r in ranks
+                               for k in ("n_pos", "n_sampled"))
+            ranks_equal = all(r["digest"] == ranks[0]["digest"]
+                              for r in ranks)
+            map_err = max(float((ranks[0]["maps"][k] - want_maps[k])
+                                .abs().max()) for k in want_maps)
+            keep_same = all(torch.equal(r["dets"]["valid"], want_det["valid"])
+                            for r in ranks)
+            box_err = max(float((r["dets"]["boxes"] - want_det["boxes"])
+                                .abs().max()) for r in ranks)
+            name = f"dp{world}" if n_model == 1 else "dp2xtp2"
+            step_launches = [{k: r["launches_step"][k] for k in
+                              ("rasterize_boxes", "rasterize_landmarks",
+                               "ohem")} for r in ranks]
+            det_launches = [{k: r["launches_detect"][k] for k in
+                             ("nms", "window")} for r in ranks]
+            launches[f"{name}_step_rank0"] = ranks[0]["launches_step"]
+            launches[f"spatial{world}_detect_rank0"] = \
+                ranks[0]["launches_detect"]
+            emit({"phase": f"multi_{name}_spatial{world}",
+                  "processes": world, "backend": "gloo (CUDA tensors), one "
+                  "card shared", "mesh": ranks[0]["mesh"],
+                  "rows_per_rank": ranks[0]["rows"],
+                  "gloo_collectives_on_cuda": ranks[0]["collectives"],
+                  "max_param_err_vs_single": param_err,
+                  "max_loss_err_vs_single": loss_err,
+                  "bars": {"param": 2e-6, "loss": 1e-5, "maps": 2e-5,
+                           "boxes": 1e-3},
+                  "n_pos_n_sampled_equal": counts_equal,
+                  "ranks_bit_equal": ranks_equal,
+                  "step_launches_per_rank": step_launches,
+                  "ms_per_step_sharing_the_card": [
+                      r["ms_per_step_sharing_the_card"] for r in ranks],
+                  "spatial_canvas": [2, *MULTI_CANVAS],
+                  "spatial_max_map_err_scale1": map_err,
+                  "spatial_keep_sets_equal": keep_same,
+                  "spatial_max_box_err": box_err,
+                  "detections": int(want_det["valid"].sum()),
+                  "detect_launches_per_rank": det_launches,
+                  "detect_ms_per_rank": [r["detect_ms"] for r in ranks],
+                  "wall_s_with_start_up": wall})
+            ok_collectives = all(all(r["collectives"].values())
+                                 for r in ranks)
+            want_launch = {"rasterize_boxes": 1, "rasterize_landmarks": 0,
+                           "ohem": 1}
+            if not (ok_collectives and param_err < 2e-6 and loss_err < 1e-5
+                    and counts_equal and ranks_equal):
+                raise AssertionError(f"{name}: the sharded step is not the "
+                                     f"single-device step: params "
+                                     f"{param_err}, loss {loss_err}")
+            if not (map_err < 2e-5 and keep_same and box_err < 1e-3):
+                raise AssertionError(f"spatial {world}: maps {map_err}, "
+                                     f"keep {keep_same}, boxes {box_err}")
+            if any(s != want_launch for s in step_launches) or any(
+                    d != {"nms": 1, "window": 0} for d in det_launches):
+                raise AssertionError(f"{name}: launches {step_launches} "
+                                     f"{det_launches}")
+
+        # (c) the command line under torchrun, one process, NCCL
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        work = os.path.join(root, "cli")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "densebox_tpu_torch.cli",
+             "train", "--synthetic", "--workdir", work, "--steps", "3",
+             "--ckpt-every", "3", "--log-every", "1"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(os.path.join(work, "ckpt"))) \
+            if os.path.isdir(os.path.join(work, "ckpt")) else []
+        emit({"phase": "multi_torchrun_cli", "argv": "torchrun "
+              "--standalone --nproc_per_node 1 -m densebox_tpu_torch.cli "
+              "train --synthetic --steps 3 --ckpt-every 3 --log-every 1",
+              "rc": res.returncode, "checkpoints": kept,
+              "stdout_tail": res.stdout[-600:], "wall_s": cli_s})
+        if res.returncode != 0 or kept != ["step_00000003.pt"] or \
+                "done at step 3" not in res.stdout:
+            raise AssertionError(f"torchrun cli train: rc {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "multi_seconds", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_xla_int8():
+    """Phase 25: the turbo_int8 cell (B=8, 480 x 640, one scale) with the
+    JAX package's default chain, ``QuantDenseBox(backend='xla')``."""
+    import torch
+
+    from densebox_tpu_torch import QuantDenseBox
+    from densebox_tpu_torch.infer import detect_batch
+    from densebox_tpu_torch.models import quant as mq
+
+    _, turbo, turbo_infer, label = serving_cells()[1]
+    canvas = np.zeros((8, 480, 640, 3), np.float32)
+    for i, img in enumerate(request_images(8, (480, 640), seed=25)):
+        canvas[i, :img.shape[0], :img.shape[1]] = img
+    x = torch.from_numpy(canvas).cuda()
+    fused = init_quant_model(turbo, x)                 # calibrated on the card
+    xla = QuantDenseBox(turbo, backend="xla", device="cuda").eval()
+    xla.load_state_dict(fused.state_dict())
+    cpu = QuantDenseBox(turbo, backend="xla", device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in fused.state_dict().items()})
+    infer = with_live_threshold(xla, x, turbo_infer)
+
+    def recorded(model, images):
+        seen = []
+        real = mq.qconv_int8
+
+        def recording(x_q, *args, out="int8", **kw):
+            acc = real(x_q, *args, out=out, **kw)
+            seen.append((x_q, acc, out))
+            return acc
+
+        with mock.patch.object(mq, "qconv_int8", recording), \
+                torch.inference_mode():
+            maps = model(images)
+        return maps, seen
+
+    got, got_q = recorded(xla, x)
+    want, want_q = recorded(cpu, x.cpu())
+    n_codes = sum(w[0].numel() for w in want_q)
+    codes_diff = sum(int((g[0].cpu() != w[0]).sum())
+                     for g, w in zip(got_q, want_q))
+    acc_diff = sum(int((g[1].cpu() != w[1]).sum())
+                   for g, w in zip(got_q, want_q))
+    modes = [g[2] for g in got_q]
+    same = {k: bool(torch.equal(got[k].cpu(), want[k])) for k in want}
+    reset_launches()
+    with torch.inference_mode():
+        dets = detect_batch(xla, x, infer, label)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    def call_ms(model):
+        with torch.inference_mode():
+            detect_batch(model, x, infer, label)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            detect_batch(model, x, infer, label)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    times = {"fused": [], "xla": []}
+    for name in ("fused", "xla", "xla", "fused") * 3:
+        model = fused if name == "fused" else xla
+        call_ms(model)
+        times[name] += [call_ms(model) for _ in range(10)]
+    emit({"phase": "xla_int8", "model": "turbo (s2d4, depth 3, w0.25) int8",
+          "backend": "xla", "batch": 8, "canvas": [480, 640], "scales": [1.0],
+          "convs": len(got_q), "modes": sorted(set(modes)),
+          "int8_codes_compared": n_codes, "int8_codes_differing": codes_diff,
+          "int32_accumulators_differing": acc_diff, "maps_equal": same,
+          "launches_per_call": launches,
+          "detections": int(dets["valid"].sum()),
+          "device_call_ms": {k: quartiles_ms(np.asarray(v) / 1e3)
+                             for k, v in times.items()},
+          "timing": "host clock around one synchronised detect_batch of "
+                    "the canvas batch; 30 calls a backend in turns "
+                    "(fused, xla, xla, fused) x 3",
+          "card": card_line()})
+    if codes_diff or acc_diff or not all(same.values()):
+        raise AssertionError(f"xla int8 on the card differs from the CPU: "
+                             f"{codes_diff} codes, {acc_diff} accumulators, "
+                             f"{same}")
+    if modes != ["int32"] * 14 or launches["qconv"] != 14 or \
+            launches["requant"] != 0 or launches["nms"] != 1:
+        raise AssertionError(f"xla int8: modes {modes}, launches {launches}")
+    return launches
+
+
 def cv2_version():
     """cv2's version where it imports, else None."""
     try:
@@ -2447,6 +2886,7 @@ def conv_library_ms(args) -> float:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs only on a CUDA card", file=sys.stderr)
@@ -2504,6 +2944,8 @@ def main() -> int:
     launches["train_malf"], _ = phase_train("malf_face", malf, 12, True)
     launches["fit"] = phase_fit()
     phase_cli(bare_ms)
+    multi = phase_multi_device(bare_ms)
+    multi["xla_int8_call"] = phase_xla_int8()
 
     # (name, source, TPU kernel it replaces, the main-path run its launch
     # count is read from, its counter)
@@ -2528,7 +2970,10 @@ def main() -> int:
             "replaces": f"densebox_tpu/ops/pallas/{replaces}",
             "launches": launches[run][counter], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, **more})
+            "bound_by": bound_by, "library_ms": library_ms, **more,
+            **{f"launches_{run_}": counts[counter]
+               for run_, counts in multi.items()}})
+    emit({"phase": "seconds", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

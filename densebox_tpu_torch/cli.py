@@ -11,7 +11,16 @@ flags, less those of its TPU backends.
 
 (``densebox-torch`` once the package is installed.) Every subcommand runs
 on the card unless ``--device`` names another device (``--device cpu``);
-without a card and without ``--device`` it raises. Images are read by
+without a card and without ``--device`` it raises.
+
+``train`` runs data-parallel under ``torchrun`` (one process per card, or
+per CPU process with ``--device cpu``; ``parallel/multihost.py``):
+
+  torchrun --nproc_per_node 2 -m densebox_tpu_torch.cli train --synthetic \
+      --workdir run --device cpu
+
+each rank loads its rows of every global batch, rank 0 alone prints and
+writes checkpoints. Images are read by
 ``data/imageio.py``: without cv2 only PNG, and no image larger than the
 canvas; ``detect --video`` and the annotated images of ``detect --image``
 need cv2.
@@ -98,10 +107,11 @@ def _build_cfg(args):
                        seed=args.seed))
 
 
-def _synthetic_canvas_batches(cfg, device):
+def _synthetic_canvas_batches(cfg, device, num_shards=1, shard_index=0):
     """Step-keyed synthetic full-image batches on ``device`` (the batch of
     step N is drawn from a generator seeded with N, so a resumed run sees
-    the batches an uninterrupted one does)."""
+    the batches an uninterrupted one does); with ``num_shards`` > 1 the
+    ``shard_index``-th block of rows of each global batch."""
     from densebox_tpu_torch.config import resolved_canvas_dtype
     from densebox_tpu_torch.data import synthetic_batch
 
@@ -110,29 +120,38 @@ def _synthetic_canvas_batches(cfg, device):
         std_height_px=cfg.label.std_height_px, stride=cfg.label.stride)
     image_dtype = getattr(torch, resolved_canvas_dtype(cfg))
 
+    rows = cfg.train.batch_size // num_shards
+    lo = shard_index * rows
+
     def fetch(step: int) -> dict:
         gen = torch.Generator(device=device).manual_seed(step)
-        return synthetic_batch(gen, cfg.train.batch_size, canvas_cfg,
-                               max_boxes=cfg.train.max_boxes,
-                               num_landmarks=cfg.model.num_landmarks,
-                               image_dtype=image_dtype, device=device)
+        batch = synthetic_batch(gen, cfg.train.batch_size, canvas_cfg,
+                                max_boxes=cfg.train.max_boxes,
+                                num_landmarks=cfg.model.num_landmarks,
+                                image_dtype=image_dtype, device=device)
+        return {k: v[lo:lo + rows] for k, v in batch.items()}
 
     return fetch
 
 
 def cmd_train(args) -> int:
-    from densebox_tpu_torch.device import resolve_device
+    from densebox_tpu_torch.parallel.multihost import is_primary
     from densebox_tpu_torch.train import fit
+    from densebox_tpu_torch.train.trainer import data_parallel_ranks
     from densebox_tpu_torch.utils.logging import (enable_debug_checks,
                                                   maybe_profile)
 
-    dev = resolve_device(args.device)
+    dev = _device(args)
     cfg = _build_cfg(args)
     if args.debug_nans:
         enable_debug_checks()
+    say = print if is_primary() else (lambda *a, **k: None)
+    # data parallelism: this rank's rows of every global batch
+    shards = data_parallel_ranks(cfg)
+    shard = torch.distributed.get_rank() if shards > 1 else 0
 
     if args.synthetic:
-        batches = _synthetic_canvas_batches(cfg, dev)
+        batches = _synthetic_canvas_batches(cfg, dev, shards, shard)
     else:
         from densebox_tpu_torch.config import resolved_canvas_dtype
         from densebox_tpu_torch.data.kitti import load_dataset
@@ -141,15 +160,16 @@ def cmd_train(args) -> int:
         samples = load_dataset(os.path.join(args.data_dir, "image_2"),
                                os.path.join(args.data_dir, "label_2"),
                                num_landmarks=cfg.model.num_landmarks)
-        print(f"loaded {len(samples)} samples from {args.data_dir}")
+        say(f"loaded {len(samples)} samples from {args.data_dir}")
         loader = PrefetchLoader(samples, cfg.train.batch_size,
                                 canvas_hw=tuple(args.canvas),
                                 max_boxes=cfg.train.max_boxes,
                                 seed=cfg.train.seed,
                                 num_landmarks=cfg.model.num_landmarks,
+                                num_shards=shards, shard_index=shard,
                                 image_dtype=resolved_canvas_dtype(cfg),
                                 device=dev)
-        print(f"loader backend: {loader.backend}", flush=True)
+        say(f"loader backend: {loader.backend}", flush=True)
         batches = iter(loader)
 
     # Failure recovery: periodic checkpoints and resume from the latest;
@@ -170,12 +190,22 @@ def cmd_train(args) -> int:
                     raise
                 # run_salt=attempts: fresh dropout/OHEM/patch draws per
                 # retry, so a deterministic divergence is not replayed
-                print(f"[restart {attempts}/{args.max_restarts}] "
+                say(f"[restart {attempts}/{args.max_restarts}] "
                       f"step failed: {type(e).__name__}: {e}; resuming from "
                       f"last checkpoint with salted draws", flush=True)
-    print(f"done at step {int(result.state.step)}: "
-          f"{json.dumps(result.last_metrics)}")
+    say(f"done at step {int(result.state.step)}: "
+        f"{json.dumps(result.last_metrics)}")
     return 0
+
+
+def _device(args):
+    """``--device``, else the card: under torchrun this rank's card."""
+    from densebox_tpu_torch.device import resolve_device
+    from densebox_tpu_torch.parallel.multihost import local_device, world_size
+
+    if args.device is None and world_size() > 1:
+        return local_device()
+    return resolve_device(args.device)
 
 
 def _maybe_override_label(cfg, args):
@@ -832,8 +862,17 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from densebox_tpu_torch.parallel.multihost import (ensure_distributed,
+                                                       world_size)
+
     p = _parser()
     args = p.parse_args(argv)
+    # join torchrun's process group (NCCL on the card, gloo with --device
+    # cpu); without torchrun's variables this does nothing
+    ensure_distributed(device=args.device)
+    if world_size() > 1 and args.cmd != "train":
+        p.error(f"{args.cmd} runs as one process; only train runs "
+                f"data-parallel under torchrun")
     if args.cmd in ("eval", "train") and not (args.synthetic
                                               or args.data_dir):
         p.error(f"{args.cmd} requires --data-dir or --synthetic")

@@ -33,6 +33,40 @@ from densebox_tpu_torch.ops.decode import rdiv
 DRAWS = ("anchor", "scale", "trans", "neg_size", "neg_pos", "neg", "flip")
 
 
+def patch_draws(generator: Optional[torch.Generator], b: int, k: int,
+                cfg: LabelCfg, device, *, max_translate_frac: float = 0.25,
+                hflip: bool = True,
+                given: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The random numbers ``sample_patches`` takes for a batch of ``b``
+    images with ``k`` box slots, each from ``given`` or else drawn from
+    ``generator`` in the order of ``DRAWS`` (see ``sample_patches`` for
+    their ranges). A data-parallel step draws them for the global batch and
+    keeps its own rows (``parallel/mesh.py``)."""
+    given = {} if given is None else given
+    unknown = set(given) - set(DRAWS)
+    if unknown:
+        raise ValueError(f"sample_patches: unknown draws {sorted(unknown)}")
+    lo, hi = cfg.scale_band
+    specs = [("anchor", (b, k), 0.0, 1.0), ("scale", (b,), lo, hi),
+             ("trans", (b, 2), -max_translate_frac, max_translate_frac),
+             ("neg_size", (b,), 0.5, 2.0), ("neg_pos", (b, 2), 0.0, 1.0),
+             ("neg", (b,), 0.0, 1.0)]
+    if hflip:
+        specs.append(("flip", (b,), 0.0, 1.0))
+    out = {}
+    for name, shape, lo, hi in specs:
+        if name in given:
+            out[name] = given[name].to(device)
+        elif generator is None:
+            raise ValueError(f"sample_patches: no generator and no "
+                             f"draws[{name!r}]")
+        else:
+            out[name] = torch.rand(shape, device=device,
+                                   generator=generator) * (hi - lo) + lo
+    return out
+
+
 def sample_patches(
     generator: Optional[torch.Generator],
     images: torch.Tensor,       # (B, Hc, Wc, C) canvas-padded full images
@@ -59,25 +93,15 @@ def sample_patches(
     max_translate_frac]; ``neg_size`` (B,) in [0.5, 2] patch sizes;
     ``neg_pos`` (B, 2), ``neg`` (B,) and ``flip`` (B,) in [0, 1)."""
     dev = images.device
-    draws = {} if draws is None else draws
-    unknown = set(draws) - set(DRAWS)
-    if unknown:
-        raise ValueError(f"sample_patches: unknown draws {sorted(unknown)}")
     b, hc, wc, _ = images.shape
     k = boxes.shape[1]
     ps = float(cfg.patch_size)
-
-    def uniform(name, shape, lo=0.0, hi=1.0):
-        if name in draws:
-            return draws[name].to(dev)
-        if generator is None:
-            raise ValueError(f"sample_patches: no generator and no "
-                             f"draws[{name!r}]")
-        return torch.rand(shape, device=dev, generator=generator) \
-            * (hi - lo) + lo
+    d = patch_draws(generator, b, k, cfg, dev,
+                    max_translate_frac=max_translate_frac, hflip=hflip,
+                    given=draws)
 
     # --- anchor choice: a random valid box per sample -----------------------
-    rnd = uniform("anchor", (b, k))
+    rnd = d["anchor"]
     anchor_idx = torch.where(box_valid, rnd, -1.0).argmax(dim=1)      # (B,)
     has_box = box_valid.any(dim=1)
     abox = torch.gather(boxes, 1, anchor_idx[:, None, None].expand(b, 1, 4))[:, 0]
@@ -86,21 +110,19 @@ def sample_patches(
     a_cy = (abox[:, 1] + abox[:, 3]) * 0.5
 
     # --- window geometry ----------------------------------------------------
-    lo, hi = cfg.scale_band
-    u = uniform("scale", (b,), lo, hi)
+    u = d["scale"]
     # window size so that after the resize the anchor height is std_height*u
     win = a_h * ps / (u * cfg.std_height_px)
-    jit_xy = uniform("trans", (b, 2), -max_translate_frac,
-                     max_translate_frac) * win[:, None]
+    jit_xy = d["trans"] * win[:, None]
     wx = a_cx + jit_xy[:, 0] - win * 0.5
     wy = a_cy + jit_xy[:, 1] - win * 0.5
 
     # negative window: random size and position anywhere on the canvas
-    neg_size = uniform("neg_size", (b,), 0.5, 2.0) * ps
-    neg_u = uniform("neg_pos", (b, 2))
+    neg_size = d["neg_size"] * ps
+    neg_u = d["neg_pos"]
     neg_xy = torch.stack([neg_u[:, 0] * (float(wc) - neg_size),
                           neg_u[:, 1] * (float(hc) - neg_size)], dim=-1)
-    is_neg = (uniform("neg", (b,)) < float(np.float32(neg_frac))) | ~has_box
+    is_neg = (d["neg"] < float(np.float32(neg_frac))) | ~has_box
     win = torch.where(is_neg, neg_size, win)
     wx = torch.where(is_neg, neg_xy[:, 0], wx)
     wy = torch.where(is_neg, neg_xy[:, 1], wy)
@@ -123,7 +145,7 @@ def sample_patches(
 
     out: Dict[str, torch.Tensor] = {}
     if hflip:
-        flip = uniform("flip", (b,)) < 0.5
+        flip = d["flip"] < 0.5
         fm = flip[:, None, None]
         patches = torch.where(fm[..., None], patches.flip(2), patches)
         tb = torch.where(

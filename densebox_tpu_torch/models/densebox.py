@@ -206,6 +206,11 @@ class DenseBox(nn.Module):
     hidden tensor, from ``generator`` (a ``torch.Generator`` on the images'
     device) or from a given bool ``dropout_keep`` mask of shape
     (B, H/4, W/4, heads * width). ``nn.Module.training`` is not read.
+
+    Under tensor parallelism (``parallel/mesh.py``) each head's conv1 holds
+    this rank's slice of its output channels and ``head_shards`` gathers
+    the hidden tensor before conv2; a given ``dropout_keep`` then covers
+    this rank's channels only.
     """
 
     def __init__(self, cfg: ModelCfg, device=None):
@@ -242,6 +247,9 @@ class DenseBox(nn.Module):
             self.refine_conv2 = nn.Conv2d(rw, rw, 3, padding=1, **kw)
             self.refine_out = nn.Conv2d(rw, 1, 1, **kw)
         self.to(memory_format=torch.channels_last)
+        # set by parallel/mesh.py when the heads' conv1 output channels are
+        # sharded over model ranks (tensor parallelism); None: all here
+        self.head_shards = None
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         """``conv`` with its parameters cast to x's dtype."""
@@ -261,9 +269,13 @@ class DenseBox(nn.Module):
         k1 = torch.cat([c.weight[:, :, 0, 0] for c in conv1]).to(dtype)
         b1 = torch.cat([c.bias for c in conv1]).to(dtype)    # k1 (n*W, Cin)
         ca = f3.shape[1]
+        a, u = _nhwc_rows(f3), up.reshape(-1, up.shape[-1])
+        tp = self.head_shards
+        if tp is not None:      # this rank's conv1 channels of every head
+            a, u = tp.enter(a), tp.enter(u)
         # bias and the second partial product accumulate in the GEMM epilogue
-        y = torch.addmm(b1, _nhwc_rows(f3), k1[:, :ca].t())
-        y = y.addmm_(up.reshape(-1, up.shape[-1]), k1[:, ca:].t())
+        y = torch.addmm(b1, a, k1[:, :ca].t())
+        y = y.addmm_(u, k1[:, ca:].t())
         if train and self.cfg.dropout_rate > 0.0:
             if dropout_keep is None:
                 if generator is None:
@@ -275,6 +287,8 @@ class DenseBox(nn.Module):
                                    dropout_plan(self.cfg.dropout_rate)[1])
         else:
             y = y.relu_()
+        if tp is not None:
+            y = tp.gather(y, len(heads))
         k2 = torch.block_diag(*[c.weight[:, :, 0, 0] for c in conv2]).to(dtype)
         b2 = torch.cat([c.bias for c in conv2]).to(dtype)
         z = torch.addmm(b2, y, k2.t())

@@ -7,7 +7,9 @@ conv's input scale, so activations stay int8 between convs. This is the
 JAX package's ``_forward_fused`` chain (its backends ``'pallas'`` and
 ``'hybrid'``), the one whose TPU kernels this port replaces: on the card
 every conv is ``ops/kernels/qconv.py`` (and, for ``backend='hybrid'``,
-``ops/kernels/requant.py``); on the CPU their plain versions.
+``ops/kernels/requant.py``); on the CPU their plain versions. Backend
+``'xla'`` is the JAX package's default chain (``_forward`` with qparams at
+its ``'auto'`` settings), with bf16 tensors between the convs.
 
 Usage (the detector and the server take it like the float model):
 
@@ -17,9 +19,10 @@ Usage (the detector and the server take it like the float model):
     detect = make_detect_fn(model, infer_cfg, label_cfg)
 
 ``models/convert.py:qparams_from_jax`` loads the JAX package's qparams
-instead. Not ported: the JAX default backend ``'xla'`` (bf16 glue between
-layers) and the knobs ``acc_dtype``, ``up_int8``, ``head_fuse`` and
-``tail``, TPU A/Bs (ROADMAP.md).
+instead. Not ported: the knobs ``acc_dtype``, ``up_int8``, ``head_fuse``
+and ``tail`` of JAX's ``'xla'`` chain, TPU A/Bs (ROADMAP.md); ``'xla'``
+runs at their ``'auto'`` values (int32 accumulators, bf16 upsample, one
+conv per head, int8 tail convs).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from densebox_tpu_torch.ops.kernels.requant import (channel_vector,
                                                     requant_epilogue)
 
 GLUE = torch.bfloat16   # dtype of the float tensors between int8 stages
-BACKENDS = ("fused", "hybrid")
+BACKENDS = ("fused", "hybrid", "xla")
 
 
 def conv_shapes(cfg: ModelCfg) -> Dict[str, Tuple[int, int, int, int]]:
@@ -182,6 +185,11 @@ class QuantDenseBox(nn.Module):
     ``qconv_int8`` with its epilogue; ``backend='hybrid'`` (JAX
     ``'hybrid'``) runs the int32-accumulator ``qconv_int8`` and then
     ``requant_epilogue``. The two compute the same values bit for bit.
+    ``backend='xla'`` (JAX ``'xla'``, that package's default) is another
+    chain: each conv quantises its bf16 input, runs the int32-accumulator
+    ``qconv_int8`` and dequantises ``f32(acc) * (in_scale * w_scale) +
+    bias`` (a product, then a sum, each rounded) to bf16 before ReLU; the
+    heads' input is quantised once, at ``det_conv1``'s scale.
 
     Call with NHWC float images (H, W divisible by ``cfg.min_divisor``);
     returns a dict of stride-4 NHWC float32 maps: ``score``, ``loc`` and,
@@ -260,9 +268,55 @@ class QuantDenseBox(nn.Module):
             return requant_epilogue(acc, scale, bias, out_scale, relu=relu)
         return qconv_int8(x_q, w_q, scale, bias, out_scale, relu=relu)
 
+    def _conv_xla(self, x: Optional[torch.Tensor], name: str, *,
+                  relu: bool = True, x_q: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+        """JAX ``_forward``'s int8 conv: bf16 x (or its codes ``x_q``) ->
+        bf16."""
+        q = self._q[name]
+        if x_q is None:
+            x_q = quant_act(x, q.in_scale)
+        scale, bias, _ = self._conv_constants(name, None)
+        acc = qconv_int8(x_q, q.w_q, None, None, out="int32")
+        y = (acc.to(torch.float32) * scale + bias).to(GLUE)
+        return torch.relu(y) if relu else y
+
+    def _forward_xla(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        x, f3 = images.to(GLUE), None
+        for kind, name, _ in self.plan:
+            if kind == "conv":
+                x = self._conv_xla(x, name)
+                if name == self.f3_tap:
+                    f3 = x
+            elif kind in ("s2d", "s2d4"):
+                x = space_to_depth(x, 2 if kind == "s2d" else 4)
+            else:
+                x = max_pool_2x2(x)
+        feat = torch.cat([f3, upsample2x_align_corners(x)], dim=-1)
+        feat_q = quant_act(feat, self._q["det.det_conv1"].in_scale)
+
+        def head(prefix):
+            h = self._conv_xla(None, f"{prefix}.{prefix}_conv1", x_q=feat_q)
+            return self._conv_xla(h, f"{prefix}.{prefix}_conv2", relu=False)
+
+        out = {"score": head("det").float(), "loc": head("loc").float()}
+        if cfg.num_landmarks:
+            lm = head("lm")
+            out["lm"] = lm.float()
+            if cfg.use_refine:
+                r = torch.cat([out["score"].to(GLUE), lm], dim=-1)
+                r = self._conv_xla(r, "refine_conv1")
+                r = self._conv_xla(r, "refine_conv2")
+                out["refined"] = self._conv_xla(r, "refine_out",
+                                                relu=False).float()
+        return out
+
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         check_divisible(cfg, images)
+        if self.backend == "xla":
+            return self._forward_xla(images)
         in_scale = {n: q.in_scale for n, q in self._q.items()}
         nxt = dict(zip(self.convs[:-1], self.convs[1:]))
         # trunk: quantise the image once, then int8 from conv to conv

@@ -24,7 +24,7 @@ them).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -40,12 +40,17 @@ def ohem_mask(sq_loss: torch.Tensor, pos: torch.Tensor, ignore: torch.Tensor,
                        cfg.neg_pos_ratio, cfg.hard_frac, cfg.min_neg)[0]
 
 
-def _cls_term(pred: torch.Tensor, gt: torch.Tensor, ignore: torch.Tensor,
+def _cls_mask(pred: torch.Tensor, gt: torch.Tensor, ignore: torch.Tensor,
               rnd: torch.Tensor, cfg: LossCfg
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """OHEM-masked L2 classification term over a batch; pred, gt and ignore
-    (B, M, M, 1), rnd (B, M*M). Returns (loss, (B, M*M) bool mask). The mask
-    is a constant of the graph: it selects, and carries no gradient."""
+    """The squared errors (B, M*M) of a classification term and its OHEM
+    mask (B, M*M) bool; pred, gt and ignore (B, M, M, 1), rnd (B, M*M). The
+    mask is a constant of the graph: it selects, and carries no gradient.
+
+    The selection is per sample: a sample's negative quota comes from its
+    own positives (or ``min_neg``) and its own uniforms, so the rows of a
+    data-parallel rank select exactly what the same rows of the global
+    batch select. Only the normalisers below are batch-wide."""
     b = pred.shape[0]
     sq = ((pred - gt) ** 2).reshape(b, -1)
     pos = (gt > 0.5).reshape(b, -1)
@@ -53,8 +58,7 @@ def _cls_term(pred: torch.Tensor, gt: torch.Tensor, ignore: torch.Tensor,
     with torch.no_grad():
         mask = ohem_select(sq.detach().contiguous(), pos, ign, rnd,
                            cfg.neg_pos_ratio, cfg.hard_frac, cfg.min_neg)
-    n = mask.sum().clamp(min=1)
-    return (sq * mask).sum() / n, mask
+    return sq, mask
 
 
 def densebox_loss(
@@ -63,8 +67,18 @@ def densebox_loss(
     rnd_cls: torch.Tensor,              # (B, M*M) uniforms for the score term
     cfg: LossCfg,
     rnd_refined: Optional[torch.Tensor] = None,   # same, for the refined term
+    total: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total multi-task loss and a dict of scalar float32 metrics."""
+    """Total multi-task loss and a dict of scalar float32 metrics.
+
+    Each term is a sum over the batch divided by a count over the batch
+    (sampled pixels, positives, landmark positives and negatives).
+    ``total`` maps the float64 vector of this batch's counts to the counts
+    of the global batch (a data-parallel step sums them over its ranks);
+    the loss is then this batch's share of the global loss, the shares of
+    the ranks add up to it, and so do their gradients. ``n_pos`` and
+    ``n_sampled`` are the global counts. Without ``total`` the batch is the
+    global batch."""
     for name in ("score", "loc"):
         if outputs[name].shape != gts[name].shape:
             raise ValueError(f"densebox_loss: {name} prediction "
@@ -72,44 +86,55 @@ def densebox_loss(
                              f"{tuple(gts[name].shape)}")
     if outputs["score"].dim() != 4:
         raise ValueError("densebox_loss: want (B, M, M, C) maps")
+    has_lm = "lm" in outputs and "lm" in gts
+    if has_lm and outputs["lm"].shape != gts["lm"].shape:
+        raise ValueError(f"densebox_loss: lm prediction "
+                         f"{tuple(outputs['lm'].shape)} against target "
+                         f"{tuple(gts['lm'].shape)}")
+    if "refined" in outputs and rnd_refined is None:
+        raise ValueError("densebox_loss: the model has a refined score; "
+                         "its OHEM term needs rnd_refined")
 
-    cls_loss, mask = _cls_term(outputs["score"], gts["score"], gts["ignore"],
-                               rnd_cls, cfg)
+    sq, mask = _cls_mask(outputs["score"], gts["score"], gts["ignore"],
+                         rnd_cls, cfg)
     loc_mask = gts["loc_mask"]
-    npos = loc_mask.sum().clamp(min=1.0)
-    loc_sq = ((outputs["loc"] - gts["loc"]) ** 2).sum(dim=-1, keepdim=True)
-    loc_loss = (loc_sq * loc_mask).sum() / npos
+    counts = [mask.sum(), loc_mask.sum(), gts["score"].sum()]
+    if has_lm:
+        lm_pos = gts["lm"] > 0.5
+        counts += [lm_pos.sum(), (~lm_pos).sum()]
+    if "refined" in outputs:
+        ref_sq, ref_mask = _cls_mask(outputs["refined"], gts["score"],
+                                     gts["ignore"], rnd_refined, cfg)
+        counts.append(ref_mask.sum())
+    # integer-valued counts: exact in float64, and in float32 below 2**24
+    counts = torch.stack([c.double() for c in counts])
+    if total is not None:
+        counts = total(counts)
+    counts = counts.float()
 
-    total = cls_loss + cfg.lambda_loc * loc_loss
+    cls_loss = (sq * mask).sum() / counts[0].clamp(min=1.0)
+    loc_sq = ((outputs["loc"] - gts["loc"]) ** 2).sum(dim=-1, keepdim=True)
+    loc_loss = (loc_sq * loc_mask).sum() / counts[1].clamp(min=1.0)
+
+    total_loss = cls_loss + cfg.lambda_loc * loc_loss
     metrics = {
         "loss_cls": cls_loss,
         "loss_loc": loc_loss,
-        "n_pos": gts["score"].sum(),
-        "n_sampled": mask.sum().float(),
+        "n_pos": counts[2],
+        "n_sampled": counts[0],
     }
 
-    if "lm" in outputs and "lm" in gts:
-        if outputs["lm"].shape != gts["lm"].shape:
-            raise ValueError(f"densebox_loss: lm prediction "
-                             f"{tuple(outputs['lm'].shape)} against target "
-                             f"{tuple(gts['lm'].shape)}")
+    if has_lm:
         lm_sq = (outputs["lm"] - gts["lm"]) ** 2
-        lm_pos = gts["lm"] > 0.5
-        p = lm_pos.sum().float().clamp(min=1.0)
-        n = (~lm_pos).sum().float().clamp(min=1.0)
-        lm_loss = 0.5 * ((lm_sq * lm_pos).sum() / p
-                         + (lm_sq * ~lm_pos).sum() / n)
-        total = total + cfg.lambda_lm * lm_loss
+        lm_loss = 0.5 * ((lm_sq * lm_pos).sum() / counts[3].clamp(min=1.0)
+                         + (lm_sq * ~lm_pos).sum() / counts[4].clamp(min=1.0))
+        total_loss = total_loss + cfg.lambda_lm * lm_loss
         metrics["loss_lm"] = lm_loss
 
     if "refined" in outputs:
-        if rnd_refined is None:
-            raise ValueError("densebox_loss: the model has a refined score; "
-                             "its OHEM term needs rnd_refined")
-        ref_loss, _ = _cls_term(outputs["refined"], gts["score"],
-                                gts["ignore"], rnd_refined, cfg)
-        total = total + cfg.lambda_refine * ref_loss
+        ref_loss = (ref_sq * ref_mask).sum() / counts[-1].clamp(min=1.0)
+        total_loss = total_loss + cfg.lambda_refine * ref_loss
         metrics["loss_refined"] = ref_loss
 
-    metrics["loss_total"] = total
-    return total, {k: v.detach() for k, v in metrics.items()}
+    metrics["loss_total"] = total_loss
+    return total_loss, {k: v.detach() for k, v in metrics.items()}

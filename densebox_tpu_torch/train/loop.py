@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from densebox_tpu_torch.config import DenseBoxConfig
-from densebox_tpu_torch.data.patches import sample_patches
+from densebox_tpu_torch.data.patches import patch_draws, sample_patches
 from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.models.convert import init_params
 from densebox_tpu_torch.models.densebox import DenseBox, dropout_keep_mask
@@ -140,16 +140,20 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def sgd_update(params: List[torch.Tensor], grads: List[torch.Tensor],
-               momentum: List[torch.Tensor], cfg: DenseBoxConfig, step: int
+               momentum: List[torch.Tensor], cfg: DenseBoxConfig, step: int,
+               norm: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm
                ) -> torch.Tensor:
     """Apply one optimizer step to ``params`` and ``momentum`` in place
     (see the module docstring for the chain). Returns the global norm of the
-    updates. No host synchronisation: the clip is a select on the device."""
+    updates. No host synchronisation: the clip is a select on the device.
+    ``norm`` is the global norm of a list of tensors aligned with
+    ``params`` (a tensor-parallel step sums the squares of its sharded
+    parameters over the model ranks)."""
     t = cfg.train
     if t.grad_clip_norm > 0:
-        norm = global_norm(grads)
-        below = norm < t.grad_clip_norm
-        clipped = torch._foreach_div(grads, norm)
+        norm_g = norm(grads)
+        below = norm_g < t.grad_clip_norm
+        clipped = torch._foreach_div(grads, norm_g)
         torch._foreach_mul_(clipped, t.grad_clip_norm)
         grads = [torch.where(below, g, c) for g, c in zip(grads, clipped)]
     grads = torch._foreach_add(grads, params, alpha=t.weight_decay)
@@ -157,7 +161,7 @@ def sgd_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     torch._foreach_add_(momentum, grads)
     updates = torch._foreach_mul(momentum, -learning_rate(cfg, step))
     torch._foreach_add_(params, updates)
-    return global_norm(updates)
+    return norm(updates)
 
 
 def create_train_state(model: DenseBox, cfg: DenseBoxConfig, device=None
@@ -176,12 +180,50 @@ def create_train_state(model: DenseBox, cfg: DenseBoxConfig, device=None
                       seed=cfg.train.seed)
 
 
+def step_draws(gen: torch.Generator, model: DenseBox, cfg: DenseBoxConfig,
+               b: int, k: int, device, sample_from_canvas: bool,
+               given: Mapping) -> Dict:
+    """Every random draw of one step for a batch of ``b`` rows with ``k``
+    box slots, each from ``given`` (the step's ``draws`` argument) or else
+    from ``gen``, always in this order: the patch draws (canvas steps), the
+    dropout keep mask of the heads' hidden tensor, the OHEM uniforms of the
+    score term and of the refined term."""
+    out = {}
+    if sample_from_canvas:
+        out["patches"] = patch_draws(gen, b, k, cfg.label, device,
+                                     given=given.get("patches"))
+    m = cfg.label.map_size
+    if "dropout_keep" in given:
+        out["dropout_keep"] = given["dropout_keep"].to(device)
+    elif cfg.model.dropout_rate > 0.0:
+        hidden = (b, m, m, len(model.head_spec)
+                  * cfg.model.scaled(cfg.model.head_width))
+        out["dropout_keep"] = dropout_keep_mask(hidden, cfg.model.dropout_rate,
+                                                gen)
+    names = ["ohem_score"]
+    if cfg.model.num_landmarks and cfg.model.use_refine:
+        names.append("ohem_refined")
+    for name in names:
+        out[name] = (given[name].to(device) if name in given else
+                     torch.rand((b, m * m), device=device, generator=gen))
+    return out
+
+
 def build_train_step(model: DenseBox, cfg: DenseBoxConfig, device,
-                     sample_from_canvas: bool) -> Callable:
+                     sample_from_canvas: bool, shard=None) -> Callable:
     """The step behind ``make_train_step`` and
     ``train.trainer.make_canvas_train_step`` (which see): with
     ``sample_from_canvas`` the batch is first cropped to patches on the
-    device."""
+    device.
+
+    ``shard`` makes it the step of one rank of a data- (and tensor-)
+    parallel mesh (``parallel/mesh.py:make_sharded_train_step``): the batch
+    holds this rank's rows of a global batch of ``shard.n_data`` times as
+    many; the draws are made for the global batch and ``shard.local_draws``
+    keeps this rank's share; ``shard.total`` sums the loss's counts over the
+    data ranks, ``shard.reduce_grads`` the gradients, ``shard.norm`` is the
+    global norm of the update and ``shard.sum_metrics`` makes the loss
+    terms global."""
     dev = resolve_device(device)
     crop = cfg.train.crop_dtype
     if crop == "auto":
@@ -203,45 +245,40 @@ def build_train_step(model: DenseBox, cfg: DenseBoxConfig, device,
         gen = state.generator.manual_seed(
             step_seed(state.seed, state.salt, state.step))
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+        b, k = batch["boxes"].shape[:2]
         with torch.no_grad():
+            draws = step_draws(gen, model, cfg,
+                               b * shard.n_data if shard else b, k, dev,
+                               sample_from_canvas, draws)
+            if shard is not None:
+                draws = shard.local_draws(draws, b)
             if sample_from_canvas:
                 batch = sample_patches(
-                    gen, batch["image"], batch["boxes"], batch["box_valid"],
+                    None, batch["image"], batch["boxes"], batch["box_valid"],
                     cfg.label, landmarks=batch.get("landmarks"),
                     lm_valid=batch.get("lm_valid"), crop_dtype=crop_dtype,
-                    draws=draws.get("patches"))
+                    draws=draws["patches"])
             gts = rasterize(batch["boxes"], batch["box_valid"], cfg.label,
                             batch.get("landmarks"), batch.get("lm_valid"))
-            b, m = gts["score"].shape[:2]
-            hidden = (b, m, m, len(model.head_spec)
-                      * cfg.model.scaled(cfg.model.head_width))
-            if "dropout_keep" in draws:
-                keep = draws["dropout_keep"].to(dev)
-            elif cfg.model.dropout_rate > 0.0:
-                keep = dropout_keep_mask(hidden, cfg.model.dropout_rate, gen)
-            else:
-                keep = None
-
-            def uniforms(name):
-                if name in draws:
-                    return draws[name].to(dev)
-                return torch.rand((b, m * m), device=dev, generator=gen)
-
-            rnd_score = uniforms("ohem_score")
-            rnd_refined = (uniforms("ohem_refined")
-                           if cfg.model.num_landmarks and cfg.model.use_refine
-                           else None)
 
         model.zero_grad(set_to_none=True)
         with repeatable_kernels():
-            out = model(batch["image"], train=True, dropout_keep=keep)
-            loss, metrics = densebox_loss(out, gts, rnd_score, cfg.loss,
-                                          rnd_refined)
+            out = model(batch["image"], train=True,
+                        dropout_keep=draws.get("dropout_keep"))
+            loss, metrics = densebox_loss(
+                out, gts, draws["ohem_score"], cfg.loss,
+                draws.get("ohem_refined"),
+                total=shard.total if shard else None)
             loss.backward()
         names, params = zip(*model.named_parameters())
+        grads = [p.grad for p in params]
+        if shard is not None:
+            shard.reduce_grads(grads)
         metrics["update_norm"] = sgd_update(
-            list(params), [p.grad for p in params],
-            [state.momentum[k] for k in names], cfg, state.step)
+            list(params), grads, [state.momentum[k] for k in names], cfg,
+            state.step, norm=shard.norm if shard else global_norm)
+        if shard is not None:
+            metrics = shard.sum_metrics(metrics)
         state.step += 1
         return state, metrics
 

@@ -2,9 +2,9 @@
 
 One step = on-device patch sampling + GT rasterization + forward + OHEM loss
 + backward + SGD (``train/loop.py``). ``fit`` adds the loop around it:
-checkpoints with exact resume, metric logging, and the divergence check.
-It runs on one device; the JAX package's data-parallel mesh is not ported
-yet.
+checkpoints with exact resume, metric logging, and the divergence check,
+on one device or data-parallel over the ranks of a process group
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -14,9 +14,13 @@ import math
 import os
 from typing import Callable, Dict, Mapping, Optional
 
+import torch.distributed as dist
+
 from densebox_tpu_torch.config import DenseBoxConfig
 from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.models.densebox import DenseBox
+from densebox_tpu_torch.parallel import mesh as mesh_lib
+from densebox_tpu_torch.parallel.multihost import is_primary, world_size
 from densebox_tpu_torch.train import checkpoint as ckpt_lib
 from densebox_tpu_torch.train.loop import (TrainState, build_train_step,
                                            create_train_state, mix_seed)
@@ -49,6 +53,16 @@ class TrainingDiverged(RuntimeError):
     finite checkpoint."""
 
 
+def data_parallel_ranks(cfg: DenseBoxConfig, use_mesh: bool = True) -> int:
+    """How many ranks ``fit`` splits each global batch of
+    ``cfg.train.batch_size`` over: every rank of the process group when
+    there is more than one and the batch divides over them, else 1."""
+    world = world_size()
+    if use_mesh and world > 1 and cfg.train.batch_size % world == 0:
+        return world
+    return 1
+
+
 def fit(
     cfg: DenseBoxConfig,
     batches,
@@ -56,6 +70,7 @@ def fit(
     *,
     num_steps: Optional[int] = None,
     sample_from_canvas: bool = True,
+    use_mesh: bool = True,
     resume: bool = True,
     init_state: Optional[TrainState] = None,
     run_salt: int = 0,
@@ -87,15 +102,38 @@ def fit(
     uninterrupted run.
 
     ``draws(step)`` gives the step's random draws (the ``draws`` argument
-    of the step, ``train.loop.make_train_step``) in place of the state's
-    generator. It exists for parity tests, which feed the draws of the JAX
-    package's run; training leaves it None.
+    of the step, ``train.loop.make_train_step``; those of the global batch)
+    in place of the state's generator. It exists for parity tests, which
+    feed the draws of the JAX package's run; training leaves it None.
+
+    Data parallelism (``use_mesh``) engages when the default process group
+    has more than one rank and the global batch ``cfg.train.batch_size``
+    divides over them (``data_parallel_ranks``): each rank's ``batches``
+    then hold its own ``batch_size / ranks`` rows of every global batch (as
+    ``PrefetchLoader(num_shards=, shard_index=)`` or ``parallel.shard_batch``
+    give them), and every step is ``parallel.make_sharded_train_step``'s,
+    which equals the single-device step on the global batch. When the batch
+    does not divide, the primary says so and every rank trains on the whole
+    batch it is given. Either way rank 0 alone writes checkpoints (the
+    others wait for it) and logs; every rank restores the same file; the
+    checked loss is the global one, so a divergence raises on every rank.
     """
     dev = resolve_device(device)
     num_steps = num_steps or cfg.train.num_steps
     fetch = batches if callable(batches) else (lambda _step: next(batches))
+    primary, world = is_primary(), world_size()
+    n_data = data_parallel_ranks(cfg, use_mesh)
+    if use_mesh and world > 1 and n_data == 1 and primary:
+        print(f"DP mesh disabled: global batch {cfg.train.batch_size} not "
+              f"divisible by {world} ranks; every rank trains on the whole "
+              f"batch", flush=True)
 
     first = fetch(0)
+    if n_data > 1 and first["image"].shape[0] * n_data != cfg.train.batch_size:
+        raise ValueError(f"fit: a rank's batch has {first['image'].shape[0]} "
+                         f"rows; {n_data} ranks split a global batch of "
+                         f"{cfg.train.batch_size} into "
+                         f"{cfg.train.batch_size // n_data}")
     state = init_state or create_train_state(
         DenseBox(cfg.model, device=dev), cfg, device=dev)
 
@@ -103,14 +141,25 @@ def fit(
     if workdir:
         mngr = ckpt_lib.make_manager(os.path.join(workdir, "ckpt"),
                                      cfg.train.ckpt_keep)
-        logger = MetricsLogger(os.path.join(workdir, "tb"))
-        if resume and ckpt_lib.restore_checkpoint(mngr, state, dev):
+        logger = MetricsLogger(os.path.join(workdir, "tb")) if primary \
+            else None
+        if resume and ckpt_lib.restore_checkpoint(mngr, state, dev) \
+                and primary:
             print(f"resumed from step {state.step}", flush=True)
+    if world > 1:       # nobody writes before every rank has read
+        dist.barrier()
     if run_salt:
         state.salt = mix_seed(state.salt, run_salt)
 
-    step_fn = make_canvas_train_step(state.model, cfg, sample_from_canvas,
-                                     device=dev)
+    if n_data > 1:
+        mesh = mesh_lib.make_mesh(n_data=n_data)
+        step_fn, place_state, _ = mesh_lib.make_sharded_train_step(
+            state.model, cfg, mesh, state,
+            sample_from_canvas=sample_from_canvas, device=dev)
+        state = place_state(state)
+    else:
+        step_fn = make_canvas_train_step(state.model, cfg, sample_from_canvas,
+                                         device=dev)
 
     last: Dict[str, float] = {}
     # the step count lives on the host (state.step is a Python int), and
@@ -135,7 +184,10 @@ def fit(
         elif step == num_steps:
             last = {k: float(v) for k, v in metrics.items()}
         if mngr and save_now:
-            ckpt_lib.save_checkpoint(mngr, state, cfg)
+            if primary:
+                ckpt_lib.save_checkpoint(mngr, state, cfg)
+            if world > 1:
+                dist.barrier()
         if step < num_steps:
             batch = fetch(step)
     if logger:

@@ -275,7 +275,7 @@ def test_qparams_from_jax_checks(quant_case):
     with pytest.raises(ValueError, match="shape"):
         qparams_from_jax(bad, cfg)
     with pytest.raises(ValueError, match="backend"):
-        QuantDenseBox(cfg, backend="xla", device="cpu")
+        QuantDenseBox(cfg, backend="pallas", device="cpu")
 
 
 DET_CFG = ModelCfg(stem="s2d4", trunk_depth=2, width_mult=0.125,

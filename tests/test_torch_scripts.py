@@ -61,6 +61,9 @@ import densebox_tpu_torch.cli, densebox_tpu_torch.eval
 import densebox_tpu_torch.native
 import densebox_tpu_torch.data.kitti, densebox_tpu_torch.data.pipeline
 import densebox_tpu_torch.data.imageio
+import densebox_tpu_torch.parallel, densebox_tpu_torch.parallel.mesh
+import densebox_tpu_torch.parallel.spatial
+import densebox_tpu_torch.parallel.multihost, densebox_tpu_torch.entry
 import chip_smoke, profile_port
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "jaxlib", "optax", "orbax", "tensorflow",
@@ -73,8 +76,9 @@ sys.exit(1 if bad else 0)
 def test_port_loads_no_jax():
     """Importing the port (its train, data and utils subpackages, the
     trainer, the checkpoints, the logger, the command line, eval, the KITTI
-    reader, the loader and its native core, the image decoder and both
-    scripts included) in a fresh interpreter loads no module of jax, flax,
+    reader, the loader and its native core, the image decoder, the
+    multi-device layer ``parallel/``, ``entry.py`` and both scripts
+    included) in a fresh interpreter loads no module of jax, flax,
     jaxlib, optax, orbax, tensorflow or the JAX package."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),
@@ -85,10 +89,13 @@ def test_port_loads_no_jax():
 
 def test_import_rule_covers_the_command_line_modules():
     """The static check above runs over every module of the command line's
-    slice (the parametrisation is a glob of the package)."""
+    slice and of the multi-device slice (the parametrisation is a glob of
+    the package)."""
     for path in ("cli.py", "eval.py", "native/__init__.py", "data/kitti.py",
                  "data/pipeline.py", "data/imageio.py", "utils/viz.py",
-                 "utils/logging.py", "serve.py"):
+                 "utils/logging.py", "serve.py", "parallel/__init__.py",
+                 "parallel/mesh.py", "parallel/spatial.py",
+                 "parallel/multihost.py", "entry.py"):
         assert os.path.join("densebox_tpu_torch", path) in PACKAGE, path
     assert "chip_smoke.py" in SCRIPTS
 
