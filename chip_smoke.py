@@ -169,7 +169,22 @@ not 0):
      every int8 code, int32 accumulator and map on the card equal to the
      CPU's; 14 ``qconv_int8`` launches per device call, all in int32 mode,
      no ``requant_epilogue``; the device call of 'fused' and 'xla' timed in
-     turns, median (q1, q3).
+     turns, median (q1, q3);
+ 26. export (``densebox_tpu_torch/export.py``) of the turbo_int8, paper and
+     malf_bf16 cells at B=8, 480 x 640: first a trace in a process whose
+     constant caches were emptied, after which the live detect is unchanged
+     and no int8 epilogue vector was kept; then export, save, reload: the
+     artifact's detections equal the live ``detect_batch`` of the same
+     batch bit for bit, with the same launches per call (1 NMS; 14
+     ``qconv_int8``, all on the tensor cores; 1 window gather), with the
+     export, save and load seconds, the artifact's size and the device-call
+     time of artifact and live path (CUDA events, in turns, median (q1,
+     q3)); the turbo_int8 artifact loaded in a fresh process where
+     ``densebox_tpu`` and ``jax`` cannot be imported and every model
+     forward and ``detect_batch`` raise, equal to this process's answer;
+     ``cli train`` (1 step), ``cli export`` and ``python3 -m
+     densebox_tpu_torch.cli serve --artifact`` as a subprocess: 4 PNG
+     requests, each equal to a direct detect of the checkpoint's model.
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
 lists the seven kernels (with the least time the card could take for the
@@ -177,7 +192,7 @@ same bytes or operations, from the published peaks of an H100 SXM, and one
 PyTorch call's time where one computes the same function; ``ms`` is device
 time by CUDA-graph replay for the int8 conv, the window gather, the
 rasterizers and OHEM, which also carry ``floor_ms``, an empty launch of their
-grid, and their launches on phase 24's and 25's paths as
+grid, and their launches on the paths of phases 24-26 as
 ``launches_<run>``), after the card line again and the script's seconds;
 the last line is {"ok": true, "device": {...}}.
 
@@ -213,8 +228,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
+def event_seconds(fn, reps: int):
+    """Device time of each of ``reps`` calls by CUDA events around it,
+    after a warm-up, in seconds."""
     import torch
 
     fn()
@@ -226,8 +242,13 @@ def median_ms(fn, reps: int) -> float:
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        times.append(start.elapsed_time(end) / 1e3)
+    return times
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median device time of one call, by CUDA events, after a warm-up."""
+    return float(np.median(event_seconds(fn, reps))) * 1e3
 
 
 def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
@@ -2067,7 +2088,8 @@ def http_call(port, method, path, body=None, length=None, timeout=300):
         conn.close()
 
 
-def served_json(model, rgb, infer_cfg, label_cfg, max_batch):
+def served_json(model, rgb, infer_cfg, label_cfg, max_batch,
+                canvas_hw=KITTI_CANVAS):
     """What the server answers for ``rgb`` alone in its device call: a
     direct ``detect_batch`` of a ``max_batch`` canvas batch with the image
     in slot 0 and zeros elsewhere, rounded as the front end rounds."""
@@ -2075,7 +2097,7 @@ def served_json(model, rgb, infer_cfg, label_cfg, max_batch):
 
     from densebox_tpu_torch.infer import detect_batch
 
-    x = np.zeros((max_batch,) + KITTI_CANVAS + (3,), np.float32)
+    x = np.zeros((max_batch,) + tuple(canvas_hw) + (3,), np.float32)
     h, w = rgb.shape[:2]
     x[0, :h, :w] = rgb.astype(np.float32) / 255.0
     with torch.inference_mode():
@@ -2859,6 +2881,283 @@ def phase_xla_int8():
     return launches
 
 
+# a process that loads an artifact with the JAX package and jax blocked and
+# every model forward and detect_batch raising (phase 26)
+FRESH_LOAD = """
+import json, sys
+from unittest import mock
+sys.modules["densebox_tpu"] = None
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+from densebox_tpu_torch import export, infer
+from densebox_tpu_torch.infer import detector
+from densebox_tpu_torch.models import DenseBox, QuantDenseBox
+from densebox_tpu_torch.ops.kernels import nms, qconv
+
+
+def boom(*args, **kwargs):
+    raise AssertionError("model code ran")
+
+
+for owner, name in ((DenseBox, "forward"), (QuantDenseBox, "forward"),
+                    (QuantDenseBox, "_forward_xla"), (detector, "detect_batch"),
+                    (detector, "detect_from_maps"), (infer, "detect_batch"),
+                    (export, "detect_batch")):
+    mock.patch.object(owner, name, boom).start()
+call, meta = export.load_exported(sys.argv[1])
+out = call(torch.from_numpy(np.load(sys.argv[2])).cuda())
+torch.cuda.synchronize()
+np.savez(sys.argv[3], **{k: v.cpu().numpy() for k, v in out.items()})
+print(json.dumps({"launches": {"nms": nms.launches, "qconv": qconv.launches},
+                  "jax_modules": sorted(m for m in sys.modules if m.split(
+                      ".")[0] in ("jax", "jaxlib", "flax") and sys.modules[m])}))
+"""
+
+
+def export_cells():
+    """The cells of phase 26 as (name, model config, infer and label
+    configs, int8 chain or None, loc bias): turbo_int8 (the int8 serve
+    cell), paper and malf_bf16 (the bf16 serve cells)."""
+    (_, paper, p_infer, p_label), (_, turbo, t_infer, t_label) = \
+        serving_cells()
+    malf = landmark_cells()[0]
+    return [("turbo_int8", turbo, t_infer, t_label, "fused", 0.0),
+            ("paper", paper, p_infer, p_label, None, 0.0),
+            (malf[0], *malf[1:4], None, 1.0)]
+
+
+def phase_export():
+    """Phase 26: the detect pipeline exported (``export.py``) at full width,
+    reloaded and run against the live path; a load in a fresh process with
+    no model code; ``cli export`` then ``cli serve --artifact``."""
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    import torch
+
+    from densebox_tpu_torch.export import (DetectProgram, artifact_meta,
+                                           export_detect_program,
+                                           load_exported, save_exported)
+    from densebox_tpu_torch.infer import detect_batch, detector, resize
+    from densebox_tpu_torch.models import densebox as mdb
+    from densebox_tpu_torch.ops.kernels import qconv as kq
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="densebox_export_")
+    proc = None
+    counts = {}
+    try:
+        canvas = np.zeros((8, 480, 640, 3), np.float32)
+        for i, img in enumerate(request_images(8, (480, 640), seed=26)):
+            canvas[i, :img.shape[0], :img.shape[1]] = img
+        x = torch.from_numpy(canvas).cuda()
+        turbo_out = turbo_path = None
+        for name, cfg, infer, label, quant, loc_bias in export_cells():
+            model = (init_quant_model(cfg, x, quant) if quant
+                     else init_model(cfg, "cuda", loc_bias=loc_bias))
+            infer = with_live_threshold(model, x, infer)
+
+            def live():
+                with torch.inference_mode():
+                    return detect_batch(model, x, infer, label)
+
+            want = live()
+            # a trace in a process whose constant caches are cold keeps
+            # none of the fake tensors it makes: the live path is unchanged
+            for cache in (detector._table, resize._weights,
+                          mdb._interp_matrix):
+                cache.cache_clear()
+            if quant:
+                model.refresh_constants()
+            with torch.no_grad():
+                torch.export.export(DetectProgram(model, infer, label), (x,),
+                                    strict=False)
+            kept = len(model._consts) if quant else None
+            after = live()
+            cold_ok = all(torch.equal(after[k], want[k]) for k in want)
+
+            t0 = time.perf_counter()
+            ep = export_detect_program(model, infer, label, 8, (480, 640))
+            export_s = time.perf_counter() - t0
+            path = os.path.join(root, f"{name}.pt2")
+            t0 = time.perf_counter()
+            save_exported(path, ep, artifact_meta(model, infer, 8,
+                                                  (480, 640)))
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            call, meta = load_exported(path)
+            load_s = time.perf_counter() - t0
+
+            reset_launches()
+            kq.variant_launches.clear()
+            got = call(x)
+            torch.cuda.synchronize()
+            art_launches, art_variants = read_launches(), dict(
+                kq.variant_launches)
+            reset_launches()
+            kq.variant_launches.clear()
+            live()
+            torch.cuda.synchronize()
+            live_launches, live_variants = read_launches(), dict(
+                kq.variant_launches)
+            equal = {k: bool(torch.equal(got[k], want[k])) for k in want}
+            times = {"live": [], "artifact": []}
+            for which in ("live", "artifact", "artifact", "live") * 3:
+                times[which] += event_seconds(
+                    live if which == "live" else (lambda: call(x)), 5)
+            counts[f"export_{name}"] = art_launches
+            emit({"phase": f"export_{name}", "batch": 8,
+                  "canvas": [480, 640], "meta": meta,
+                  "export_s": export_s, "save_s": save_s, "load_s": load_s,
+                  "artifact_mb": os.path.getsize(path) / 1e6,
+                  "graph_nodes": len(ep.graph.nodes),
+                  "outputs_equal_live": equal,
+                  "detections": int(want["valid"].sum()),
+                  "launches_artifact": art_launches,
+                  "launches_live": live_launches,
+                  "qconv_variants_artifact": art_variants,
+                  "cold_trace_consts_kept": kept,
+                  "live_after_cold_trace_equal": cold_ok,
+                  "device_call_ms": {k: quartiles_ms(v)
+                                     for k, v in times.items()},
+                  "timing": "CUDA events around one call of the canvas "
+                            "batch; 30 calls each, in turns (live, "
+                            "artifact, artifact, live) x 3, 5 a turn",
+                  "card": card_line()})
+            want_launches = {"nms": 1, "qconv": 14 if quant else 0,
+                             "requant": 0,
+                             "window": 1 if cfg.num_landmarks else 0,
+                             "rasterize_boxes": 0, "rasterize_landmarks": 0,
+                             "ohem": 0}
+            if not all(equal.values()) or not want["valid"].any():
+                raise AssertionError(f"export {name}: the artifact differs "
+                                     f"from the live detect: {equal}")
+            if art_launches != want_launches or live_launches != \
+                    want_launches or art_variants != live_variants or (
+                    quant and not all(v.startswith("mma")
+                                      for v in art_variants)):
+                raise AssertionError(
+                    f"export {name}: launches {art_launches} {art_variants}, "
+                    f"live {live_launches} {live_variants}")
+            if not cold_ok or kept:
+                raise AssertionError(f"export {name}: a cold trace changed "
+                                     f"the live path ({kept} kept)")
+            if name == "turbo_int8":
+                turbo_out, turbo_path = got, path
+            del model, ep, call
+
+        # the turbo_int8 artifact in a fresh process: no JAX, no model code
+        xpath, opath = (os.path.join(root, "x.npy"),
+                        os.path.join(root, "fresh.npz"))
+        np.save(xpath, canvas)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", FRESH_LOAD, turbo_path,
+                              xpath, opath], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        fresh_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"fresh-process load failed: "
+                                 f"{res.stdout[-1000:]}{res.stderr[-2000:]}")
+        said = json.loads(res.stdout.strip().splitlines()[-1])
+        fresh = dict(np.load(opath))
+        fresh_equal = {k: bool(np.array_equal(fresh[k], v.cpu().numpy()))
+                       for k, v in turbo_out.items()}
+        emit({"phase": "export_fresh_process", "artifact": "turbo_int8",
+              "blocked": ["densebox_tpu", "jax", "DenseBox.forward",
+                          "QuantDenseBox.forward", "detect_batch"],
+              "seconds": fresh_s, **said, "outputs_equal_parent": fresh_equal})
+        if not all(fresh_equal.values()) or said["jax_modules"] or \
+                said["launches"] != {"nms": 1, "qconv": 14}:
+            raise AssertionError(f"fresh-process load: {said} {fresh_equal}")
+
+        # cli export, then cli serve --artifact as a subprocess
+        work, art = os.path.join(root, "run"), os.path.join(root, "cli.pt2")
+        rc_t, _, err_t = run_cli(["train", "--synthetic", "--workdir", work,
+                                  "--steps", "1", "--batch-size", "4",
+                                  "--ckpt-every", "1"])
+        if rc_t != 0:
+            raise AssertionError(f"cli train: rc {rc_t}: {err_t[-2000:]}")
+        cfg, model = load_float_model(work)
+        thresh = with_live_threshold(model, x, cfg.infer).score_thresh
+        t0 = time.perf_counter()
+        rc_x, out_x, err_x = run_cli(["export", "--workdir", work, "--out",
+                                      art, f"--thresh={thresh!r}"])
+        cli_export_s = time.perf_counter() - t0
+        if rc_x != 0 or "verify: reload + call ok" not in out_x:
+            raise AssertionError(f"cli export: rc {rc_x}: {out_x[-1000:]} "
+                                 f"{err_x[-2000:]}")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        serve_log = os.path.join(root, "serve.log")
+        t0 = time.perf_counter()
+        with open(serve_log, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "densebox_tpu_torch.cli", "serve",
+                 "--artifact", art, "--port", str(port)], cwd=REPO, env=env,
+                stdout=logf, stderr=subprocess.STDOUT)
+        health = None
+        while health is None and time.perf_counter() - t0 < 120:
+            if proc.poll() is not None:
+                break
+            try:
+                health = http_call(port, "GET", "/healthz", timeout=5)[1]
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        if health is None:
+            raise AssertionError(f"cli serve --artifact: no /healthz within "
+                                 f"120 s (rc {proc.poll()}): "
+                                 f"{open(serve_log).read()[-2000:]}")
+        rgbs = [np.round(img * 255).astype(np.uint8)
+                for img in request_images(4, (480, 640), seed=27)]
+        responses = []
+        for i, rgb in enumerate(rgbs):
+            png = os.path.join(root, f"{i}.png")
+            write_png(png, rgb)
+            with open(png, "rb") as f:
+                responses.append(http_call(port, "POST", "/detect", f.read()))
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(30)
+        proc = None
+        flags = precision_flags()       # the server keeps torch's defaults
+        set_precision_flags(TORCH_DEFAULTS)
+        try:
+            served_cfg = dataclasses.replace(cfg.infer, score_thresh=thresh)
+            wants = [served_json(model, rgb, served_cfg, cfg.label, 8,
+                                 (480, 640)) for rgb in rgbs]
+        finally:
+            set_precision_flags(flags)
+        equal = [r == (200, w) for r, w in zip(responses, wants)]
+        emit({"phase": "export_cli", "argv": "cli export --workdir W --out A "
+              "--thresh T; python3 -m densebox_tpu_torch.cli serve "
+              "--artifact A --port P", "export_s": cli_export_s,
+              "export_said": out_x.strip().splitlines(),
+              "artifact_mb": os.path.getsize(art) / 1e6,
+              "seconds_to_healthz": up_s, "health": health,
+              "detections": [r[1].get("n") for r in responses],
+              "responses_equal_direct_detect": equal, "rc_after_sigint": rc})
+        if not all(equal) or not any(r[1].get("n") for r in responses) or \
+                rc != 0 or health.get("artifact") != art:
+            raise AssertionError(f"cli serve --artifact: equal {equal}, rc "
+                                 f"{rc}, health {health}")
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait(10)
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "export_seconds", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def cv2_version():
     """cv2's version where it imports, else None."""
     try:
@@ -2946,6 +3245,7 @@ def main() -> int:
     phase_cli(bare_ms)
     multi = phase_multi_device(bare_ms)
     multi["xla_int8_call"] = phase_xla_int8()
+    multi.update(phase_export())
 
     # (name, source, TPU kernel it replaces, the main-path run its launch
     # count is read from, its counter)

@@ -24,7 +24,10 @@ train/checkpoint.py), metric logging (utils/logging.py) — and the command
 line (cli.py: train, detect, quantize, serve, eval) with the host modules
 behind it: the KITTI reader, the loader and its native core, image decoding
 (data/), eval (eval.py), drawing (utils/viz.py) and the HTTP front end
-(serve.py). See ROADMAP.md for the slices to come.
+(serve.py) — and export: the detect pipeline as one torch.export artifact
+(export.py), its kernels custom operators (ops/kernels/), served by
+``DetectServer.from_exported`` and ``cli serve --artifact``. See ROADMAP.md
+for what is left.
 
 Public functions take and return the JAX package's layouts: NHWC images and
 maps, (B, K, 4) xyxy boxes.

@@ -1,6 +1,7 @@
 """Command line of the port (port of ``densebox_tpu/cli.py``): ``train``,
-``detect``, ``quantize``, ``serve`` and ``eval``, with the JAX package's
-flags, less those of its TPU backends.
+``detect``, ``quantize``, ``export``, ``serve`` and ``eval``, with the JAX
+package's flags, less those of its TPU backends (``export`` takes
+``--device`` where JAX's took ``--platforms``).
 
   python -m densebox_tpu_torch.cli train --data-dir <kitti_root> --workdir run
   python -m densebox_tpu_torch.cli train --synthetic --workdir run --steps 200
@@ -8,6 +9,8 @@ flags, less those of its TPU backends.
   python -m densebox_tpu_torch.cli quantize --workdir run --out run_int8
   python -m densebox_tpu_torch.cli detect --workdir run --image a.png
   python -m densebox_tpu_torch.cli serve --workdir run --port 8471
+  python -m densebox_tpu_torch.cli export --workdir run --out detect.pt2
+  python -m densebox_tpu_torch.cli serve --artifact detect.pt2
 
 (``densebox-torch`` once the package is installed.) Every subcommand runs
 on the card unless ``--device`` names another device (``--device cpu``);
@@ -281,6 +284,43 @@ def cmd_quantize(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Write the full detect pipeline (weights baked in) as one
+    self-contained artifact for ``--device`` (``export.py``); loading it
+    needs torch and the port's operator registrations, not the checkpoint
+    or the model code. Unless ``--no-verify``, reload it and call it once."""
+    from densebox_tpu_torch.device import resolve_device
+    from densebox_tpu_torch.export import (artifact_meta,
+                                           export_detect_program,
+                                           load_exported, program_device,
+                                           save_exported)
+
+    dev = resolve_device(args.device)
+    try:
+        cfg, model, quantized = _load_bundle(args.workdir, dev)
+    except FileNotFoundError as e:
+        return _no_checkpoint(e)
+    cfg = _maybe_override_label(cfg, args)
+    if args.quantize and not quantized:
+        calib, src = _calib_dir(args, dev)
+        model = _quantize(model, cfg, calib, src, dev)
+    icfg = _merged_infer_cfg(cfg.infer, args)
+    canvas = tuple(args.canvas)
+    exported = export_detect_program(model, icfg, cfg.label, args.batch,
+                                     canvas, device=dev)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    save_exported(args.out, exported,
+                  artifact_meta(model, icfg, args.batch, canvas))
+    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB, "
+          f"device {program_device(exported)})")
+    if args.verify:
+        call, _ = load_exported(args.out, dev)
+        out = call(torch.zeros((args.batch,) + canvas + (3,), device=dev))
+        print("verify: reload + call ok —",
+              {k: tuple(v.shape) for k, v in out.items()})
+    return 0
+
+
 def _detect_video(args, cfg, detect, dev) -> int:
     """Frame-batched video detection: decoded frames go in fixed-shape
     batches of ``--video-batch`` through the detect function; an annotated
@@ -437,23 +477,36 @@ def cmd_serve(args) -> int:
                                           serve_forever)
 
     dev = resolve_device(args.device)
-    try:
-        cfg, model, quantized = _load_bundle(args.workdir, dev)
-    except FileNotFoundError as e:
-        return _no_checkpoint(e)
-    cfg = _maybe_override_label(cfg, args)
-    if args.quantize and not quantized:
-        calib, src = _calib_dir(args, dev)
-        model = _quantize(model, cfg, calib, src, dev)
-    icfg = _merged_infer_cfg(cfg.infer, args)
-    server = DetectServer(model, icfg, cfg.label,
-                          canvas_hw=tuple(args.canvas),
-                          max_batch=args.max_batch,
-                          batch_window_ms=args.batch_window_ms, device=dev)
-    info = {"canvas": list(args.canvas), "max_batch": args.max_batch,
-            "quantized": bool(args.quantize or quantized),
-            "landmarks": cfg.model.num_landmarks,
-            "scales": list(icfg.scales), "device": str(dev)}
+    if args.artifact:
+        # serve a `cli export` artifact as it is: no checkpoint, no model
+        # code; its batch and canvas win over --max-batch and --canvas
+        server = DetectServer.from_exported(
+            args.artifact, batch_window_ms=args.batch_window_ms, device=dev)
+        info = {"artifact": args.artifact, **server.meta,
+                "max_batch": server.max_batch}
+    else:
+        if not args.workdir:
+            print("error: one of --workdir / --artifact is required",
+                  file=sys.stderr)
+            return 2
+        try:
+            cfg, model, quantized = _load_bundle(args.workdir, dev)
+        except FileNotFoundError as e:
+            return _no_checkpoint(e)
+        cfg = _maybe_override_label(cfg, args)
+        if args.quantize and not quantized:
+            calib, src = _calib_dir(args, dev)
+            model = _quantize(model, cfg, calib, src, dev)
+        icfg = _merged_infer_cfg(cfg.infer, args)
+        server = DetectServer(model, icfg, cfg.label,
+                              canvas_hw=tuple(args.canvas),
+                              max_batch=args.max_batch,
+                              batch_window_ms=args.batch_window_ms,
+                              device=dev)
+        info = {"canvas": list(args.canvas), "max_batch": args.max_batch,
+                "quantized": bool(args.quantize or quantized),
+                "landmarks": cfg.model.num_landmarks,
+                "scales": list(icfg.scales), "device": str(dev)}
     httpd = make_http_server(server, args.host, args.port, info)
     print(f"serving on http://{httpd.server_address[0]}:"
           f"{httpd.server_address[1]}  (POST /detect, GET /healthz)",
@@ -805,10 +858,39 @@ def _parser() -> argparse.ArgumentParser:
     _add_common_flags(q)
     q.set_defaults(fn=cmd_quantize)
 
+    x = sub.add_parser("export", help="write the detect pipeline (weights "
+                                      "baked in) as a self-contained "
+                                      "artifact: loading needs torch and "
+                                      "this package's operators only")
+    x.add_argument("--workdir", required=True,
+                   help="training run (or int8 checkpoint export) to export")
+    x.add_argument("--out", required=True, help="output artifact path")
+    x.add_argument("--batch", type=int, default=8,
+                   help="fixed batch of the exported program")
+    x.add_argument("--canvas", type=int, nargs=2, default=(480, 640),
+                   help="fixed input H W of the exported program")
+    x.add_argument("--quantize", action="store_true",
+                   help="export the int8-PTQ pipeline")
+    x.add_argument("--calib-dir", default=None,
+                   help="representative images for int8 calibration "
+                        "(default: synthetic canvases)")
+    x.add_argument("--no-verify", dest="verify", action="store_false",
+                   help="skip the reload+call round-trip check")
+    x.add_argument("--lm-anchors", default=None,
+                   help="override the checkpoint's box-relative landmark "
+                        "anchors (flat ax,ay list)")
+    _add_infer_flags(x)
+    _add_common_flags(x)
+    x.set_defaults(fn=cmd_export)
+
     s = sub.add_parser("serve", help="batched HTTP inference server "
                                      "(POST /detect, GET /healthz)")
-    s.add_argument("--workdir", required=True,
+    s.add_argument("--workdir", default=None,
                    help="training run (or int8 checkpoint export) to serve")
+    s.add_argument("--artifact", default=None,
+                   help="serve a `densebox-torch export` artifact as it is "
+                        "(no checkpoint, no model code; its batch and "
+                        "canvas win over --max-batch and --canvas)")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8471)
     s.add_argument("--canvas", type=int, nargs=2, default=(480, 640),

@@ -20,7 +20,6 @@ JAX package run without jit.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -30,6 +29,7 @@ from densebox_tpu_torch.infer.resize import resize_linear
 from densebox_tpu_torch.ops.decode import decode_topk, div, rdiv, topk_stable
 from densebox_tpu_torch.ops.nms import nms
 from densebox_tpu_torch.ops.window import gather_windows
+from densebox_tpu_torch.utils.constants import constant_cache
 
 # per-scale model outputs with that scale's (sx, sy) factors
 Levels = List[Tuple[Dict[str, torch.Tensor], Tuple[float, float]]]
@@ -66,7 +66,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _table(values: tuple, dtype: torch.dtype, device: torch.device
            ) -> torch.Tensor:
     """A small constant tensor on the device, made once per value (an

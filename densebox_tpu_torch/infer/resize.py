@@ -13,13 +13,13 @@ device.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from densebox_tpu_torch.ops.decode import rdiv
+from densebox_tpu_torch.utils.constants import constant_cache
 
 
 def weight_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -69,7 +69,7 @@ def weight_matrices(n_in: int, n_out: int, scale: torch.Tensor,
     return torch.where(inside[:, None, :], weights, 0.0)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _weights(n_in: int, n_out: int, device: torch.device,
              dtype: torch.dtype) -> torch.Tensor:
     """``weight_matrix`` on the device, made once per shape (a blocking

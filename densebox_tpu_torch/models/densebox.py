@@ -21,7 +21,6 @@ the two views is a free ``permute``.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -32,6 +31,7 @@ from torch import nn
 from densebox_tpu_torch.config import ModelCfg
 from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.ops.decode import div
+from densebox_tpu_torch.utils.constants import constant_cache
 
 # (kind, name, base_width): the paper trunk, VGG19 through conv4_4.
 TRUNK_PLAN = (
@@ -98,7 +98,7 @@ def interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _interp_matrix(n_in: int, n_out: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     """``interp_matrix_align_corners`` on the device, made once per shape:

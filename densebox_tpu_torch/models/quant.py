@@ -41,6 +41,7 @@ from densebox_tpu_torch.models.densebox import (DenseBox, check_divisible,
 from densebox_tpu_torch.ops.kernels.qconv import qconv_int8
 from densebox_tpu_torch.ops.kernels.requant import (channel_vector,
                                                     requant_epilogue)
+from densebox_tpu_torch.utils.constants import is_plain
 
 GLUE = torch.bfloat16   # dtype of the float tensors between int8 stages
 BACKENDS = ("fused", "hybrid", "xla")
@@ -201,8 +202,9 @@ class QuantDenseBox(nn.Module):
     The epilogue vectors of each conv (``in_scale * w_scale``, the bias and
     ``1 / in_scale`` of the conv that reads its output, each as a contiguous
     (Cout,) tensor) depend on the state alone, so they are computed at the
-    first forward after the state was loaded or moved, and kept. After
-    changing a buffer in place, call ``refresh_constants()``.
+    first forward after the state was loaded or moved, and kept (not while
+    torch traces the forward: ``utils/constants.py``). After changing a
+    buffer in place, call ``refresh_constants()``.
     """
 
     def __init__(self, cfg: ModelCfg, backend: str = "fused", device=None):
@@ -252,9 +254,10 @@ class QuantDenseBox(nn.Module):
             cout, dev = q.w_q.shape[0], q.w_q.device
             out_scale = (channel_vector(1.0 / self._q[nxt].in_scale, cout, dev)
                          if nxt is not None else None)
-            consts = self._consts[(name, nxt)] = (
-                channel_vector(q.in_scale * q.w_scale, cout, dev),
-                channel_vector(q.bias, cout, dev), out_scale)
+            consts = (channel_vector(q.in_scale * q.w_scale, cout, dev),
+                      channel_vector(q.bias, cout, dev), out_scale)
+            if is_plain(consts[0]):     # never the fake tensors of a trace
+                self._consts[(name, nxt)] = consts
         return consts
 
     def _conv(self, x_q: torch.Tensor, name: str, nxt: Optional[str], *,

@@ -1,10 +1,13 @@
 """Greedy-NMS keep mask: the CUDA kernel's wrapper and its plain version.
 
 ``greedy_keep`` replaces ``densebox_tpu/ops/pallas/nms.py:greedy_keep_pallas``
-(kernel ``_nms_kernel``), batched over images. On a CUDA tensor it launches
-``csrc/nms.cu`` (built on first use) or raises; on a CPU tensor it runs
+(kernel ``_nms_kernel``), batched over images. It is the custom operator
+``densebox::greedy_keep``: on a CUDA tensor it launches ``csrc/nms.cu``
+(built on first use) or raises; on a CPU tensor it runs
 ``greedy_keep_reference``, the plain PyTorch version the kernel is held
-against. The source comment of ``csrc/nms.cu`` gives the kernel's design.
+against; under ``torch.export`` it is one opaque node whose fake rule gives
+the output's shape, so an exported program dispatches by device when it
+runs. The source comment of ``csrc/nms.cu`` gives the kernel's design.
 """
 
 from __future__ import annotations
@@ -68,18 +71,20 @@ def _launcher():
     return fn
 
 
-def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
-                iou_thresh: float) -> torch.Tensor:
-    """Keep mask (B, K) bool for score-descending-sorted candidates.
+@torch.library.custom_op(
+    "densebox::greedy_keep", mutates_args=(), device_types="cpu",
+    schema="(Tensor boxes, Tensor valid, float iou_thresh) -> Tensor")
+def _greedy_keep_op(boxes, valid, iou_thresh):
+    return greedy_keep_reference(boxes, valid, iou_thresh)
 
-    CPU tensors take ``greedy_keep_reference``. CUDA tensors launch the
-    kernel (boxes float32 (B, K, 4), valid bool (B, K), both contiguous,
-    1 <= K <= 1024), counting the launch in ``launches``; anything else
-    raises, and so does a refused launch."""
-    if boxes.device.type == "cpu":
-        return greedy_keep_reference(boxes, valid, iou_thresh)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"greedy_keep: no kernel for device {boxes.device}")
+
+@_greedy_keep_op.register_fake
+def _(boxes, valid, iou_thresh):
+    return torch.empty_like(valid)
+
+
+@_greedy_keep_op.register_kernel("cuda")
+def _greedy_keep_cuda(boxes, valid, iou_thresh):
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError(f"greedy_keep: want float32 boxes and bool valid, "
                         f"got {boxes.dtype} and {valid.dtype}")
@@ -111,3 +116,17 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
     global launches
     launches += 1
     return keep
+
+
+def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
+                iou_thresh: float) -> torch.Tensor:
+    """Keep mask (B, K) bool for score-descending-sorted candidates, through
+    ``densebox::greedy_keep``.
+
+    CPU tensors take ``greedy_keep_reference``. CUDA tensors launch the
+    kernel (boxes float32 (B, K, 4), valid bool (B, K), both contiguous,
+    1 <= K <= 1024), counting the launch in ``launches``; anything else
+    raises, and so does a refused launch."""
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"greedy_keep: no kernel for device {boxes.device}")
+    return _greedy_keep_op(boxes, valid, float(iou_thresh))

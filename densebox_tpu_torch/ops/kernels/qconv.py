@@ -18,9 +18,12 @@ own (see ``ops/kernels/requant.py``, whose plain epilogue this reuses).
 
 Weights are laid out (Cout, k, k, Cin), Cin innermost, as the kernel reads
 them; ``models/convert.py`` and ``models/quant.py`` produce that layout from
-the JAX package's HWIO. On a CUDA tensor the wrapper launches
-``csrc/qconv.cu`` (built on first use) or raises; on a CPU tensor it runs
-``qconv_reference``.
+the JAX package's HWIO. The wrapper turns ``scale``, ``bias`` and
+``out_scale`` into (Cout,) float32 tensors and calls the custom operator
+``densebox::qconv_int8``: on a CUDA tensor it launches ``csrc/qconv.cu``
+(built on first use) or raises; on a CPU tensor it runs ``qconv_reference``;
+under ``torch.export`` it is one node whose fake rule gives the output's
+shape and, by mode, its dtype.
 
 The CUDA source holds two variants and one rule that picks between them,
 ``kernel_variant``: the int8 tensor cores (``mma``) whenever Cin is a
@@ -122,27 +125,31 @@ def _launcher():
     return fn
 
 
-def qconv_int8(x: torch.Tensor, w: torch.Tensor, scale, bias,
-               out_scale: Optional[torch.Tensor] = None, *, relu: bool = True,
-               out: str = "auto") -> torch.Tensor:
-    """SAME int8 conv + epilogue, (B, H, W, Cin) -> (B, H, W, Cout).
+def _mode(out: str, out_scale) -> int:
+    return (MODE_INT32 if out == "int32"
+            else MODE_INT8 if out_scale is not None else MODE_F32)
 
-    CPU tensors take ``qconv_reference``. CUDA tensors launch the kernel:
-    ``x`` int8 (B, H, W, Cin) and ``w`` int8 (Cout, k, k, Cin), k in {1, 3},
-    both contiguous on one card; ``scale``, ``bias`` and ``out_scale``
-    float32 scalars or (Cout,) vectors. With Cin a multiple of 16 (the
-    tensor-core variant) ``x`` and ``w`` must start on a 16-byte boundary.
-    Anything else raises, and so does a refused launch or a variant other
-    than ``kernel_variant`` names. Each launch adds one to ``launches`` and
-    to its variant's entry of ``variant_launches``."""
-    if out not in ("auto", "int32"):
-        raise ValueError(f"qconv_int8: out must be 'auto' or 'int32', "
-                         f"got {out!r}")
-    if x.device.type == "cpu":
-        return qconv_reference(x, w, scale, bias, out_scale, relu=relu,
-                               out=out)
-    if x.device.type != "cuda":
-        raise ValueError(f"qconv_int8: no kernel for device {x.device}")
+
+_DTYPES = {MODE_INT32: torch.int32, MODE_F32: torch.float32,
+           MODE_INT8: torch.int8}
+
+
+@torch.library.custom_op(
+    "densebox::qconv_int8", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor? scale, Tensor? bias, "
+           "Tensor? out_scale, bool relu, str out) -> Tensor")
+def _qconv_op(x, w, scale, bias, out_scale, relu, out):
+    return qconv_reference(x, w, scale, bias, out_scale, relu=relu, out=out)
+
+
+@_qconv_op.register_fake
+def _(x, w, scale, bias, out_scale, relu, out):
+    return x.new_empty((*x.shape[:3], w.shape[0]),
+                       dtype=_DTYPES[_mode(out, out_scale)])
+
+
+@_qconv_op.register_kernel("cuda")
+def _qconv_cuda(x, w, scale, bias, out_scale, relu, out):
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"qconv_int8: want int8 x and w, got {x.dtype} and "
                         f"{w.dtype}")
@@ -166,17 +173,14 @@ def qconv_int8(x: torch.Tensor, w: torch.Tensor, scale, bias,
         raise ValueError(f"qconv_int8: with Cin a multiple of 16, x and w "
                          f"must be {ALIGNMENT}-byte aligned (a view that "
                          f"starts inside a tensor may not be: clone it)")
-    mode = (MODE_INT32 if out == "int32"
-            else MODE_INT8 if out_scale is not None else MODE_F32)
+    mode = _mode(out, out_scale)
     vec = {}
     if mode != MODE_INT32:
         vec = {"scale": channel_vector(scale, cout, x.device),
                "bias": channel_vector(bias, cout, x.device)}
         if mode == MODE_INT8:
             vec["out_scale"] = channel_vector(out_scale, cout, x.device)
-    dtype = {MODE_INT32: torch.int32, MODE_F32: torch.float32,
-             MODE_INT8: torch.int8}[mode]
-    y = torch.empty((b, h, wd, cout), dtype=dtype, device=x.device)
+    y = torch.empty((b, h, wd, cout), dtype=_DTYPES[mode], device=x.device)
 
     def ptr(name):
         return vec[name].data_ptr() if name in vec else None
@@ -203,3 +207,30 @@ def qconv_int8(x: torch.Tensor, w: torch.Tensor, scale, bias,
                      weights_resident=bool(info[3]), grid_x=info[4],
                      shared_bytes=info[5], stages=info[6])
     return y
+
+
+def qconv_int8(x: torch.Tensor, w: torch.Tensor, scale, bias,
+               out_scale: Optional[torch.Tensor] = None, *, relu: bool = True,
+               out: str = "auto") -> torch.Tensor:
+    """SAME int8 conv + epilogue, (B, H, W, Cin) -> (B, H, W, Cout), through
+    ``densebox::qconv_int8``.
+
+    CPU tensors take ``qconv_reference``. CUDA tensors launch the kernel:
+    ``x`` int8 (B, H, W, Cin) and ``w`` int8 (Cout, k, k, Cin), k in {1, 3},
+    both contiguous on one card; ``scale``, ``bias`` and ``out_scale``
+    float32 scalars or (Cout,) vectors. With Cin a multiple of 16 (the
+    tensor-core variant) ``x`` and ``w`` must start on a 16-byte boundary.
+    Anything else raises, and so does a refused launch or a variant other
+    than ``kernel_variant`` names. Each launch adds one to ``launches`` and
+    to its variant's entry of ``variant_launches``."""
+    if out not in ("auto", "int32"):
+        raise ValueError(f"qconv_int8: out must be 'auto' or 'int32', "
+                         f"got {out!r}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"qconv_int8: no kernel for device {x.device}")
+    vec = [None, None, None]
+    if out == "auto":
+        cout = w.shape[0]
+        vec = [None if v is None else channel_vector(v, cout, x.device)
+               for v in (scale, bias, out_scale)]
+    return _qconv_op(x, w, *vec, bool(relu), out)

@@ -12,8 +12,11 @@ with ``scale``, ``bias`` and ``out_scale`` per output channel (the last
 axis). Each operation rounds on its own in IEEE f32: there is no fused
 multiply-add anywhere, so the kernel (``csrc/requant.cu``, built with
 ``-fmad=false``) and ``requant_reference`` agree bit for bit, and round
-half to even as ``jnp.round`` does. On a CUDA tensor the wrapper launches
-the kernel or raises; on a CPU tensor it runs ``requant_reference``.
+half to even as ``jnp.round`` does. The wrapper turns ``scale``, ``bias``
+and ``out_scale`` into (Cout,) float32 tensors and calls the custom operator
+``densebox::requant_epilogue``: on a CUDA tensor it launches the kernel or
+raises; on a CPU tensor it runs ``requant_reference``; under
+``torch.export`` it is one node whose fake rule gives the output.
 """
 
 from __future__ import annotations
@@ -39,7 +42,13 @@ def reset_launches() -> None:
 
 
 def channel_vector(v, cout: int, device) -> torch.Tensor:
-    """A scalar or (Cout,) value as a contiguous (Cout,) float32 tensor."""
+    """A scalar or (Cout,) value as a contiguous (Cout,) float32 tensor;
+    one that already is one (on ``device``) is returned as it is, so that a
+    traced program holds no node for it."""
+    if (isinstance(v, torch.Tensor) and v.dtype == torch.float32
+            and v.device == device and tuple(v.shape) == (cout,)
+            and v.is_contiguous()):
+        return v
     v = torch.as_tensor(v, dtype=torch.float32, device=device)
     return v.expand(cout).contiguous()
 
@@ -70,20 +79,22 @@ def _launcher():
     return fn
 
 
-def requant_epilogue(acc: torch.Tensor, scale, bias,
-                     out_scale: Optional[torch.Tensor] = None, *,
-                     relu: bool = True) -> torch.Tensor:
-    """Dequant + bias + ReLU + requant of an int32 accumulator (B, H, W, Cout).
+@torch.library.custom_op(
+    "densebox::requant_epilogue", mutates_args=(), device_types="cpu",
+    schema="(Tensor acc, Tensor scale, Tensor bias, Tensor? out_scale, "
+           "bool relu) -> Tensor")
+def _requant_op(acc, scale, bias, out_scale, relu):
+    return requant_reference(acc, scale, bias, out_scale, relu=relu)
 
-    CPU tensors take ``requant_reference``. CUDA tensors launch the kernel:
-    ``acc`` int32 and contiguous; ``scale``, ``bias`` and ``out_scale``
-    float32 scalars or (Cout,) vectors on the same device. Anything else
-    raises, and so does a refused launch. Returns int8 when ``out_scale`` is
-    given, else float32, in ``acc``'s shape."""
-    if acc.device.type == "cpu":
-        return requant_reference(acc, scale, bias, out_scale, relu=relu)
-    if acc.device.type != "cuda":
-        raise ValueError(f"requant_epilogue: no kernel for device {acc.device}")
+
+@_requant_op.register_fake
+def _(acc, scale, bias, out_scale, relu):
+    return acc.new_empty(acc.shape, dtype=torch.float32 if out_scale is None
+                         else torch.int8)
+
+
+@_requant_op.register_kernel("cuda")
+def _requant_cuda(acc, scale, bias, out_scale, relu):
     if acc.dtype != torch.int32 or not acc.is_contiguous() or acc.dim() < 1:
         raise ValueError(f"requant_epilogue: want a contiguous int32 "
                          f"accumulator, got {acc.dtype} {tuple(acc.shape)}")
@@ -109,3 +120,25 @@ def requant_epilogue(acc: torch.Tensor, scale, bias,
     global launches
     launches += 1
     return out
+
+
+def requant_epilogue(acc: torch.Tensor, scale, bias,
+                     out_scale: Optional[torch.Tensor] = None, *,
+                     relu: bool = True) -> torch.Tensor:
+    """Dequant + bias + ReLU + requant of an int32 accumulator (B, H, W, Cout),
+    through ``densebox::requant_epilogue``.
+
+    CPU tensors take ``requant_reference``. CUDA tensors launch the kernel:
+    ``acc`` int32 and contiguous; ``scale``, ``bias`` and ``out_scale``
+    float32 scalars or (Cout,) vectors on the same device. Anything else
+    raises, and so does a refused launch. Returns int8 when ``out_scale`` is
+    given, else float32, in ``acc``'s shape."""
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"requant_epilogue: no kernel for device "
+                         f"{acc.device}")
+    cout = acc.shape[-1] if acc.dim() else 1
+    return _requant_op(
+        acc, channel_vector(scale, cout, acc.device),
+        channel_vector(bias, cout, acc.device),
+        None if out_scale is None
+        else channel_vector(out_scale, cout, acc.device), bool(relu))

@@ -13,9 +13,11 @@ An origin outside [0, Hm - win] x [0, Wm - win] is moved to the nearest one
 inside, by the kernel and by the plain version alike, so that nothing is
 read outside ``maps``.
 Origins of shape (B, D, 1) are shared by every landmark channel (the
-anchor-less decode). The copy is exact in any dtype. On a CUDA tensor the
-wrapper launches ``csrc/window.cu`` (built on first use) or raises; on a CPU
-tensor it runs ``gather_windows_reference``. The kernel writes window rows
+anchor-less decode). The copy is exact in any dtype. The wrapper is the custom
+operator ``densebox::gather_windows``: on a CUDA tensor it launches
+``csrc/window.cu`` (built on first use) or raises; on a CPU tensor it runs
+``gather_windows_reference``; under ``torch.export`` it is one node whose
+fake rule gives the output. The kernel writes window rows
 as 16-byte vectors, realigned in registers from the aligned words that cover
 the source row (``tests/test_torch_kernels.py`` holds that arithmetic, in
 numpy, against the plain version); rows whose bytes are no multiple of 16
@@ -77,20 +79,22 @@ def _launcher():
     return fn
 
 
-def gather_windows(maps: torch.Tensor, sel: torch.Tensor, y0: torch.Tensor,
-                   x0: torch.Tensor, win: int) -> torch.Tensor:
-    """(B, S, L, Hm, Wm) maps + (B, D) sel + (B, D, L) or (B, D, 1) origins
-    -> (B, D, L, win, win) windows in ``maps.dtype``.
+@torch.library.custom_op(
+    "densebox::gather_windows", mutates_args=(), device_types="cpu",
+    schema="(Tensor maps, Tensor sel, Tensor y0, Tensor x0, int win) "
+           "-> Tensor")
+def _gather_windows_op(maps, sel, y0, x0, win):
+    return gather_windows_reference(maps, sel, y0, x0, win)
 
-    CPU tensors take ``gather_windows_reference``. CUDA tensors launch the
-    kernel: ``maps`` float32 or bfloat16, ``sel``, ``y0`` and ``x0`` int32,
-    all contiguous on one device, 1 <= win <= min(Hm, Wm). Anything else
-    raises, and so does a refused launch; each launch adds one to
-    ``launches``."""
-    if maps.device.type == "cpu":
-        return gather_windows_reference(maps, sel, y0, x0, win)
-    if maps.device.type != "cuda":
-        raise ValueError(f"gather_windows: no kernel for device {maps.device}")
+
+@_gather_windows_op.register_fake
+def _(maps, sel, y0, x0, win):
+    return maps.new_empty((maps.shape[0], sel.shape[1], maps.shape[2], win,
+                           win))
+
+
+@_gather_windows_op.register_kernel("cuda")
+def _gather_windows_cuda(maps, sel, y0, x0, win):
     if maps.dtype not in DTYPES:
         raise TypeError(f"gather_windows: want float32 or bfloat16 maps, "
                         f"got {maps.dtype}")
@@ -138,3 +142,19 @@ def gather_windows(maps: torch.Tensor, sel: torch.Tensor, y0: torch.Tensor,
     launches += 1
     last_path = "rows" if vector_rows.value == 1 else "elements"
     return out
+
+
+def gather_windows(maps: torch.Tensor, sel: torch.Tensor, y0: torch.Tensor,
+                   x0: torch.Tensor, win: int) -> torch.Tensor:
+    """(B, S, L, Hm, Wm) maps + (B, D) sel + (B, D, L) or (B, D, 1) origins
+    -> (B, D, L, win, win) windows in ``maps.dtype``, through
+    ``densebox::gather_windows``.
+
+    CPU tensors take ``gather_windows_reference``. CUDA tensors launch the
+    kernel: ``maps`` float32 or bfloat16, ``sel``, ``y0`` and ``x0`` int32,
+    all contiguous on one device, 1 <= win <= min(Hm, Wm). Anything else
+    raises, and so does a refused launch; each launch adds one to
+    ``launches``."""
+    if maps.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gather_windows: no kernel for device {maps.device}")
+    return _gather_windows_op(maps, sel, y0, x0, int(win))

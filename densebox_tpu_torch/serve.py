@@ -14,10 +14,12 @@ Same contract as the JAX server:
 The batch is assembled in one pinned host buffer and copied to the model's
 device without blocking.
 
-``make_http_server`` puts the JAX package's stdlib HTTP front end before it
-(``python -m densebox_tpu_torch.cli serve``): POST /detect with an encoded
-image body (decoded by ``data/imageio.py``: PNG without cv2) -> JSON
-detections; GET /healthz -> status, ``stats`` and model info.
+``DetectServer.from_exported`` serves an artifact of ``export.py`` (``cli
+serve --artifact``). ``make_http_server`` puts the JAX package's stdlib HTTP
+front end before it (``python -m densebox_tpu_torch.cli serve``): POST
+/detect with an encoded image body (decoded by ``data/imageio.py``: PNG
+without cv2) -> JSON detections; GET /healthz -> status, ``stats`` and
+model info.
 """
 
 from __future__ import annotations
@@ -42,25 +44,56 @@ MAX_BODY_BYTES = 32 * 1024 * 1024
 
 class DetectServer:
     """Request-coalescing wrapper around the port's detect function for a
-    ``DenseBox`` or the int8 ``QuantDenseBox``. The model is moved to
-    ``device``: the card when none is given (raising without one), the CPU
-    only on ``device="cpu"``. With ``warmup`` (the default, as in the JAX
-    server) the constructor runs one device call on a zero canvas batch
-    before it returns, so that the first request pays for no kernel build
-    and no cuDNN algorithm search."""
+    ``DenseBox`` or the int8 ``QuantDenseBox``, or (``from_exported``)
+    around an exported artifact. The model is moved to ``device``: the card
+    when none is given (raising without one), the CPU only on
+    ``device="cpu"``. With ``warmup`` (the default, as in the JAX server)
+    the constructor runs one device call on a zero canvas batch before it
+    returns, so that the first request pays for no kernel build and no
+    cuDNN algorithm search."""
 
     def __init__(self, model, infer_cfg, label_cfg,
                  canvas_hw: Tuple[int, int] = (480, 640),
                  max_batch: int = 8, batch_window_ms: float = 15.0,
                  warmup: bool = True, device=None):
-        self.device = resolve_device(device)
-        model.to(self.device)
+        device = resolve_device(device)
+        model.to(device)
+        self._init(make_detect_fn(model, infer_cfg, label_cfg), canvas_hw,
+                   max_batch, batch_window_ms, warmup, device)
+
+    @classmethod
+    def from_exported(cls, path: str, max_batch: Optional[int] = None,
+                      batch_window_ms: float = 15.0, warmup: bool = True,
+                      device=None) -> "DetectServer":
+        """Serve a ``cli export`` artifact (``export.py``) on ``device`` (the
+        card when none is given): no checkpoint, no model code. The
+        artifact's fixed (batch, H, W) becomes the serving (max_batch,
+        canvas); ``max_batch`` may only restate it. ``meta`` holds the
+        artifact's metadata."""
+        from densebox_tpu_torch.export import load_exported
+
+        device = resolve_device(device)
+        call, meta = load_exported(path, device)
+        if max_batch is not None and max_batch != meta["batch"]:
+            raise ValueError(
+                f"artifact was exported with batch {meta['batch']}; "
+                f"max_batch {max_batch} cannot differ (the program's shapes "
+                "are fixed): re-export with --batch")
+        self = cls.__new__(cls)
+        self._init(call, tuple(meta["canvas"]), meta["batch"],
+                   batch_window_ms, warmup, device)
+        self.meta = meta
+        return self
+
+    def _init(self, detect_fn, canvas_hw, max_batch, batch_window_ms,
+              warmup, device) -> None:
+        self.device = device
         self.canvas_hw = canvas_hw
         self.max_batch = max_batch
         self.window_s = batch_window_ms / 1e3
         # observability: device_calls vs requests is the coalescing ratio
         self.stats = {"requests": 0, "device_calls": 0}
-        self._detect = make_detect_fn(model, infer_cfg, label_cfg)
+        self._detect = detect_fn
         hc, wc = canvas_hw
         self._host = torch.zeros((max_batch, hc, wc, 3), dtype=torch.float32,
                                  pin_memory=self.device.type == "cuda")

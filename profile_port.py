@@ -52,6 +52,13 @@ Prints one JSON line per probe, after the card's name and power limit:
               between runs with the largest difference, whether parameters,
               momentum and ``update_norm`` repeat bit for bit, and ms/step
               of each mode over 10 steps, in turns;
+  export      for turbo_int8 and paper (B=8, 480x640): a device call as in
+              ``cell`` through the live path, through the live path with
+              the custom-op dispatch taken out (each wrapper calling its
+              CUDA launch directly) and through the artifact
+              (``export.py``, exported and loaded here), 20 calls each in
+              turns (live, direct, artifact, artifact, direct, live) x 2,
+              median (q1, q3); then a trace of --calls artifact calls;
   small_kernels  ``ohem_select`` (B=32, P=3600, errors of the paper model's
               forward), ``gather_windows`` (the MALF serve shape, bf16 and
               f32) and the two GT rasterizers (B=32, K=16, M=60, L=5) by
@@ -61,7 +68,7 @@ Prints one JSON line per probe, after the card's name and power limit:
               the same script times an older tree of the package;
 ``--only`` takes a comma-separated subset of the groups serve (paper,
 turbo), int8 (turbo_int8, turbo_int8_hybrid), lm (malf_bf16,
-turbo_int8_lm4), train, fused_conv, resize, qconv, determinism,
+turbo_int8_lm4), train, fused_conv, resize, qconv, determinism, export,
 small_kernels; the default is all.
 Without a CUDA card it exits 1 and prints no result.
 """
@@ -120,8 +127,9 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def host_ms(fn, reps: int):
-    """Median, q1 and q3 host-clock ms of a call that ends synchronised."""
+def host_times(fn, reps: int):
+    """Host-clock ms of ``reps`` calls that end synchronised, after a
+    warm-up."""
     import torch
 
     fn()
@@ -132,8 +140,17 @@ def host_ms(fn, reps: int):
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def quartiles(times):
     return [float(np.median(times)), float(np.percentile(times, 25)),
             float(np.percentile(times, 75))]
+
+
+def host_ms(fn, reps: int):
+    """Median, q1 and q3 host-clock ms of a call that ends synchronised."""
+    return quartiles(host_times(fn, reps))
 
 
 def trace_calls(call, calls):
@@ -181,6 +198,58 @@ def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls,
     res = {"probe": "cell", "cell": name, "device_call_ms": host_ms(call, 20)}
     res.update(trace_calls(call, calls))
     return res
+
+
+def probe_export(name, model_cfg, infer_cfg, label_cfg, host, calls, quant):
+    """A serving cell's device call through the live path, the live path
+    without the custom-op dispatch, and its exported artifact."""
+    import tempfile
+
+    from densebox_tpu_torch.export import (artifact_meta,
+                                           export_detect_program,
+                                           load_exported, save_exported)
+    from densebox_tpu_torch.infer import make_detect_fn
+    from densebox_tpu_torch.ops.kernels import nms, qconv
+
+    x = host.cuda()
+    model = (init_quant_model(model_cfg, x, quant) if quant
+             else init_model(model_cfg, "cuda"))
+    infer_cfg = with_live_threshold(model, x, infer_cfg)
+    live = make_detect_fn(model, infer_cfg, label_cfg)
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "a.pt2")
+        save_exported(path, export_detect_program(
+            model, infer_cfg, label_cfg, CANVAS[0], CANVAS[1:3]),
+            artifact_meta(model, infer_cfg, CANVAS[0], CANVAS[1:3]))
+        artifact, _ = load_exported(path)
+
+    def through(detect):
+        def call():
+            out = detect(host.to("cuda", non_blocking=True))
+            return {k: v.cpu() for k, v in out.items()}
+        return call
+
+    def no_dispatch():
+        """Each wrapper calls its CUDA launch directly."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(nms, "_greedy_keep_op",
+                                              nms._greedy_keep_cuda))
+        stack.enter_context(mock.patch.object(qconv, "_qconv_op",
+                                              qconv._qconv_cuda))
+        return stack
+
+    times = {"live": [], "direct": [], "artifact": []}
+    for which in ("live", "direct", "artifact", "artifact", "direct",
+                  "live") * 2:
+        with (no_dispatch() if which == "direct"
+              else contextlib.nullcontext()):
+            times[which] += host_times(through(
+                artifact if which == "artifact" else live), 5)
+    return {"probe": "export", "cell": name,
+            "device_call_ms": {k: quartiles(v) for k, v in times.items()},
+            "timing": "host clock around a synchronised call (pinned batch "
+                      "in, results on the host), 20 calls each in turns",
+            "artifact_trace": trace_calls(through(artifact), calls)}
 
 
 def probe_train(name, cfg, canvas, calls):
@@ -520,7 +589,7 @@ def probe_rasterizers():
 SCALED_LAYERS = ("turbo_conv1_2", "turbo_conv3_2", "turbo_conv4_2",
                  "turbo_head_conv1")
 GROUPS = ("serve", "int8", "lm", "train", "fused_conv", "resize", "qconv",
-          "determinism", "small_kernels")
+          "determinism", "export", "small_kernels")
 
 
 def main(argv=None) -> int:
@@ -584,6 +653,10 @@ def main(argv=None) -> int:
                                        ("train_paper", "train_malf")):
             emit(probe_determinism(cell, cfg, preset == "malf_face"))
             torch.cuda.empty_cache()
+    if "export" in only:
+        for name, quant, cfgs in (("turbo_int8", "fused", cells[1][1:]),
+                                  ("paper", None, cells[0][1:])):
+            emit(probe_export(name, *cfgs, host, args.calls, quant))
     if "small_kernels" in only:
         emit(probe_small_kernels())
     return 0

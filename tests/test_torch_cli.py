@@ -271,8 +271,11 @@ def test_tpu_only_flags_are_not_offered():
         with pytest.raises(SystemExit):
             cli.main(["train", "--synthetic", "--workdir", "x", flag, "jax",
                       "--device", "cpu"])
+    # export exists since the port has torch.export artifacts; its TPU/CPU
+    # lowering knob does not (--device takes its place)
     with pytest.raises(SystemExit):
-        cli.main(["export", "--workdir", "x", "--out", "y"])
+        cli.main(["export", "--workdir", "x", "--out", "y", "--platforms",
+                  "tpu,cpu", "--device", "cpu"])
 
 
 def test_max_restarts_reenters_fit_salted(tmp_path, capsys):

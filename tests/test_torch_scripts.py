@@ -64,6 +64,7 @@ import densebox_tpu_torch.data.imageio
 import densebox_tpu_torch.parallel, densebox_tpu_torch.parallel.mesh
 import densebox_tpu_torch.parallel.spatial
 import densebox_tpu_torch.parallel.multihost, densebox_tpu_torch.entry
+import densebox_tpu_torch.export, densebox_tpu_torch.utils.constants
 import chip_smoke, profile_port
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "jaxlib", "optax", "orbax", "tensorflow",
@@ -77,8 +78,8 @@ def test_port_loads_no_jax():
     """Importing the port (its train, data and utils subpackages, the
     trainer, the checkpoints, the logger, the command line, eval, the KITTI
     reader, the loader and its native core, the image decoder, the
-    multi-device layer ``parallel/``, ``entry.py`` and both scripts
-    included) in a fresh interpreter loads no module of jax, flax,
+    multi-device layer ``parallel/``, ``entry.py``, ``export.py`` and both
+    scripts included) in a fresh interpreter loads no module of jax, flax,
     jaxlib, optax, orbax, tensorflow or the JAX package."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),
