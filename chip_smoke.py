@@ -16,7 +16,7 @@ not 0):
      masks, indices, boxes and scores identical), with median times, and
      the latency of one step of its sweep from an all-kept input;
   5. the paper model (width 1.0) forward in f32 on the card against the
-     port on the CPU (TF32 off; 1e-3 absolute), then a bf16 forward;
+     port on the CPU (1e-3 absolute), then a bf16 forward;
   6. serve: a DetectServer with the paper model in bf16, 480x640 canvas,
      max_batch 8, the preset's 4-scale pyramid; 24 requests from 8 threads,
      answered, coalesced, and each equal to a direct detect_batch of the
@@ -141,14 +141,15 @@ not 0):
      KITTI files written, the note that no annotated image was; ``python3
      -m densebox_tpu_torch.cli serve`` as a subprocess: /healthz within 120
      s, 8 PNG bodies posted one at a time each answered as a direct
-     detect of its image alone in slot 0 (under torch's default precision
-     flags, which the server keeps), 413 and 400, /healthz counting 8,
+     detect of its image alone in slot 0, and for the first two the card's
+     maps of that call within 1e-4 of the CPU's and their decode on the
+     CPU equal to the answer, 413 and 400, /healthz counting 8,
      SIGINT ending it with rc 0, the latency quartiles on a line of their
      own; and ``train --landmarks 4`` (width 0.25, 4 steps) then ``detect``
      of 4 images: one window and one NMS launch per device call, finite
      landmarks. The phase's time closes it;
- 24. multi-device (``parallel/``), kitti_vehicle() at full width, f32, TF32
-     off: (a) a one-rank NCCL group in this process: the sharded train step
+ 24. multi-device (``parallel/``), kitti_vehicle() at full width, f32: (a)
+     a one-rank NCCL group in this process: the sharded train step
      at B=32, 240 px equal bit for bit to the bare step of the same state,
      batch and draws (parameters, momentum, every metric); both timed in
      turns; ``fit(use_mesh=True)`` 8 steps with checkpoints, ms/step; (b)
@@ -184,7 +185,35 @@ not 0):
      forward and ``detect_batch`` raise, equal to this process's answer;
      ``cli train`` (1 step), ``cli export`` and ``python3 -m
      densebox_tpu_torch.cli serve --artifact`` as a subprocess: 4 PNG
-     requests, each equal to a direct detect of the checkpoint's model.
+     requests, each equal to a direct detect of the checkpoint's model;
+ 27. precision: the port computes at the reference's precision by itself
+     (``device.reference_precision``), and this script sets none of torch's
+     precision flags; the phase starts with them as torch starts. (a)
+     kitti_vehicle() at full width in f32 (B=2 on the 384 x 1248 canvas,
+     its 4 scales), ``detect_batch`` and ``cli detect`` of an f32
+     checkpoint (two 375 x 1242 PNG files) on the card against the CPU:
+     every map within 1e-4, and the decode of the card's maps on the CPU
+     equal to the card's detections (boxes, scores, keep sets); (b) ``cli
+     detect --quantize`` of the same files on the card: every int8 code and
+     output of the 'fused' chain (the CLI's) equal to the CPU's on the same
+     int8 state and the same level inputs (the card's resized batches; the
+     elements where the CPU's own resize differs are counted), and the
+     'xla' chain's too, and the card's maps decoded on the CPU equal to the
+     CLI's detections; (c) the f32 train step (kitti_vehicle, B=32, 240 px)
+     on the card against the CPU, every gradient within 5e-3 of its
+     largest entry; (d) what the precision costs: ms/step of that step and
+     the device time of the paper-width f32 detect call (B=8, 480 x 640, 4
+     scales) at the port's precision and with TF32 forced on, in turns,
+     median (q1, q3); and the bf16 x2 upsample (the bf16 paper model's at
+     480 x 640 and on the KITTI canvas, the int8 chain's) against the
+     CPU's: as cuBLAS's bf16 GEMM with and without its reduced bf16
+     reduction (counted), and as the port takes it (float32 products
+     rounded once: equal);
+ 28. certification: ``python -m densebox_tpu_torch.certify`` as a
+     subprocess for fast-s2d2-w0.5-lm4 at 200 steps and 2 eval batches:
+     one JSON row with finite AP@0.50 in bf16 and int8 and a finite
+     landmark error distribution, and its wall time.
+At the end torch's three precision flags read as they did at the start.
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
 lists the seven kernels (with the least time the card could take for the
@@ -206,6 +235,7 @@ boxes of a pixel, whose landmarks all take the centre fallback).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1598,6 +1628,17 @@ def phase_step_card_vs_cpu():
     this run: up to 1e-3 of a tensor's largest entry between the CPU's own
     f32 and f64), which is why the card-against-CPU bar for gradients is
     5e-3 and not equality."""
+    for name, cfg in train_cfgs():
+        step_card_vs_cpu("train_step_card_vs_cpu", name, cfg, 4, seed=19,
+                         f64=True)
+
+
+def step_card_vs_cpu(phase, name, cfg, b, seed, f64):
+    """One f32 train step of ``cfg`` at batch ``b`` on the card and on the
+    CPU (and, with ``f64``, in float64 on the CPU) from the same state,
+    batch and draws: GT maps and OHEM masks identical, metrics within 1e-4
+    relative, every gradient within 5e-3 of its largest entry; emits the
+    line ``phase``."""
     import torch
 
     from densebox_tpu_torch import DenseBox
@@ -1607,81 +1648,84 @@ def phase_step_card_vs_cpu():
     from densebox_tpu_torch.ops.labels import rasterize
     from densebox_tpu_torch.train import create_train_state, make_train_step
 
-    b, grad_tol = 4, 5e-3
-    for name, cfg in train_cfgs():
-        gen = torch.Generator().manual_seed(19)
-        num_lm = cfg.model.num_landmarks
-        batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes,
-                                num_lm, device="cpu")
-        m = cfg.label.map_size
-        heads = 3 if num_lm else 2
-        draws = {"dropout_keep": dropout_keep_mask(
-                     (b, m, m, heads * cfg.model.scaled(cfg.model.head_width)),
-                     cfg.model.dropout_rate, gen),
-                 "ohem_score": torch.rand((b, m * m), generator=gen)}
-        if cfg.model.use_refine:
-            draws["ohem_refined"] = torch.rand((b, m * m), generator=gen)
-        res = {}
-        for dev, dtype in (("cpu", "float32"), ("cuda", "float32"),
-                           ("cpu", "float64")):
-            c = dataclasses.replace(cfg, model=dataclasses.replace(
-                cfg.model, compute_dtype=dtype, param_dtype=dtype))
-            model = DenseBox(c.model, device=dev)
-            state = create_train_state(model, c, device=dev)
-            step = make_train_step(model, c, device=dev)
-            t0 = time.perf_counter()
-            _, metrics = step(state, batch, draws=draws)
-            res["f64" if dtype == "float64" else dev] = {
-                "metrics": {k: float(v) for k, v in metrics.items()},
-                "grads": {k: p.grad.detach().cpu()
-                          for k, p in model.named_parameters()},
-                "seconds": time.perf_counter() - t0}
-        gts_cpu = rasterize(batch["boxes"], batch["box_valid"], cfg.label,
-                            batch.get("landmarks"), batch.get("lm_valid"))
-        on_card = {k: v.cuda() for k, v in batch.items()}
-        gts_card = rasterize(on_card["boxes"], on_card["box_valid"], cfg.label,
-                             on_card.get("landmarks"), on_card.get("lm_valid"))
-        gt_same = {k: bits_equal(gts_card[k].cpu(), gts_cpu[k])
-                   for k in gts_cpu}
-        sq = torch.rand((b, m * m), generator=gen) ** 2
-        pos = (gts_cpu["score"] > 0.5).reshape(b, -1)
-        ign = (gts_cpu["ignore"] > 0.5).reshape(b, -1)
-        mask_cpu = ohem_select(sq, pos, ign, draws["ohem_score"], 1.0, 0.5, 16)
-        mask_card = ohem_select(sq.cuda(), pos.cuda(), ign.cuda(),
-                                draws["ohem_score"].cuda(), 1.0, 0.5, 16)
-        mask_same = bool(torch.equal(mask_card.cpu(), mask_cpu))
-        mc, mg = res["cpu"]["metrics"], res["cuda"]["metrics"]
-        rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
-        gc, gg = res["cpu"]["grads"], res["cuda"]["grads"]
-        grad_rel = {k: float((gg[k] - gc[k]).abs().max() / gc[k].abs().max())
-                    for k in gc}
-        norm = {d: float(torch.sqrt(sum((g.double() ** 2).sum()
-                                        for g in res[d]["grads"].values())))
-                for d in res}
-        worst = max(grad_rel, key=grad_rel.get)
+    grad_tol = 5e-3
+    gen = torch.Generator().manual_seed(seed)
+    num_lm = cfg.model.num_landmarks
+    batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes,
+                            num_lm, device="cpu")
+    m = cfg.label.map_size
+    heads = 3 if num_lm else 2
+    draws = {"dropout_keep": dropout_keep_mask(
+                 (b, m, m, heads * cfg.model.scaled(cfg.model.head_width)),
+                 cfg.model.dropout_rate, gen),
+             "ohem_score": torch.rand((b, m * m), generator=gen)}
+    if cfg.model.use_refine:
+        draws["ohem_refined"] = torch.rand((b, m * m), generator=gen)
+    res = {}
+    runs = [("cpu", "float32"), ("cuda", "float32")]
+    for dev, dtype in runs + ([("cpu", "float64")] if f64 else []):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=dtype, param_dtype=dtype))
+        model = DenseBox(c.model, device=dev)
+        state = create_train_state(model, c, device=dev)
+        step = make_train_step(model, c, device=dev)
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, draws=draws)
+        res["f64" if dtype == "float64" else dev] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()},
+            "seconds": time.perf_counter() - t0}
+        del model, state, step
+    gts_cpu = rasterize(batch["boxes"], batch["box_valid"], cfg.label,
+                        batch.get("landmarks"), batch.get("lm_valid"))
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    gts_card = rasterize(on_card["boxes"], on_card["box_valid"], cfg.label,
+                         on_card.get("landmarks"), on_card.get("lm_valid"))
+    gt_same = {k: bits_equal(gts_card[k].cpu(), gts_cpu[k]) for k in gts_cpu}
+    sq = torch.rand((b, m * m), generator=gen) ** 2
+    pos = (gts_cpu["score"] > 0.5).reshape(b, -1)
+    ign = (gts_cpu["ignore"] > 0.5).reshape(b, -1)
+    mask_cpu = ohem_select(sq, pos, ign, draws["ohem_score"], 1.0, 0.5, 16)
+    mask_card = ohem_select(sq.cuda(), pos.cuda(), ign.cuda(),
+                            draws["ohem_score"].cuda(), 1.0, 0.5, 16)
+    mask_same = bool(torch.equal(mask_card.cpu(), mask_cpu))
+    mc, mg = res["cpu"]["metrics"], res["cuda"]["metrics"]
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
+    gc, gg = res["cpu"]["grads"], res["cuda"]["grads"]
+    grad_rel = {k: float((gg[k] - gc[k]).abs().max() / gc[k].abs().max())
+                for k in gc}
+    norm = {d: float(torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in res[d]["grads"].values())))
+            for d in res}
+    worst = max(grad_rel, key=grad_rel.get)
+    line = {"phase": phase, "model": f"{name} w1.0 f32", "batch": b,
+            "patch": cfg.label.patch_size,
+            "precision": "the port's own; torch's flags as it starts",
+            "gt_maps_equal": gt_same, "ohem_mask_equal": mask_same,
+            "metrics_cpu": mc, "metrics_card": mg, "metrics_rel_err": rel,
+            "metrics_tol": 1e-4, "grad_norm": norm,
+            "grad_norm_rel_err": abs(norm["cuda"] - norm["cpu"]) / norm["cpu"],
+            "grad_max_rel_err": grad_rel[worst], "grad_worst": worst,
+            "grad_tol": grad_tol,
+            "seconds": {d: res[d]["seconds"] for d in res}}
+    if f64:
         g64 = res["f64"]["grads"]
-        vs_f64 = {d: max(float((res[d]["grads"][k] - g64[k]).abs().max()
-                               / g64[k].abs().max()) for k in g64)
-                  for d in ("cpu", "cuda")}
-        emit({"phase": "train_step_card_vs_cpu", "model": f"{name} w1.0 f32",
-              "batch": b, "patch": cfg.label.patch_size, "tf32": False,
-              "gt_maps_equal": gt_same, "ohem_mask_equal": mask_same,
-              "metrics_cpu": mc, "metrics_card": mg, "metrics_rel_err": rel,
-              "metrics_tol": 1e-4, "grad_norm": norm,
-              "grad_norm_rel_err": abs(norm["cuda"] - norm["cpu"]) / norm["cpu"],
-              "grad_max_rel_err": grad_rel[worst], "grad_worst": worst,
-              "grad_tol": grad_tol, "grad_max_rel_err_vs_cpu_f64": vs_f64,
-              "seconds": {d: res[d]["seconds"] for d in res}})
-        if not all(gt_same.values()) or not mask_same:
-            raise AssertionError(f"{name}: GT maps or OHEM mask on the card "
-                                 f"differ from the CPU")
-        if max(rel.values()) > 1e-4:
-            raise AssertionError(f"{name}: train metrics on the card differ "
-                                 f"from the CPU: {rel}")
-        if (grad_rel[worst] > grad_tol
-                or abs(norm["cuda"] - norm["cpu"]) > grad_tol * norm["cpu"]):
-            raise AssertionError(f"{name}: gradients on the card differ from "
-                                 f"the CPU: {grad_rel}")
+        line["grad_max_rel_err_vs_cpu_f64"] = {
+            d: max(float((res[d]["grads"][k] - g64[k]).abs().max()
+                         / g64[k].abs().max()) for k in g64)
+            for d in ("cpu", "cuda")}
+    emit(line)
+    if not all(gt_same.values()) or not mask_same:
+        raise AssertionError(f"{name}: GT maps or OHEM mask on the card "
+                             f"differ from the CPU")
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"{name}: train metrics on the card differ "
+                             f"from the CPU: {rel}")
+    if (grad_rel[worst] > grad_tol
+            or abs(norm["cuda"] - norm["cpu"]) > grad_tol * norm["cpu"]):
+        raise AssertionError(f"{name}: gradients on the card differ from "
+                             f"the CPU: {grad_rel}")
 
 
 def phase_step_repeats():
@@ -1691,7 +1735,6 @@ def phase_step_repeats():
     bit for bit; and what the pinning that makes it so
     (``train/loop.py:repeatable_kernels``) costs, as ms/step with it and
     with it taken out, in turns."""
-    import contextlib
 
     import torch
 
@@ -1957,24 +2000,6 @@ VEHICLES = ("Car", "Van", "Truck")
 TORCH_DEFAULTS: dict = {}       # precision flags as torch starts (main())
 
 
-def precision_flags() -> dict:
-    import torch
-
-    return {"cudnn_tf32": torch.backends.cudnn.allow_tf32,
-            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "bf16_reduced": (torch.backends.cuda.matmul
-                             .allow_bf16_reduced_precision_reduction)}
-
-
-def set_precision_flags(flags: dict) -> None:
-    import torch
-
-    torch.backends.cudnn.allow_tf32 = flags["cudnn_tf32"]
-    torch.backends.cuda.matmul.allow_tf32 = flags["matmul_tf32"]
-    (torch.backends.cuda.matmul
-     .allow_bf16_reduced_precision_reduction) = flags["bf16_reduced"]
-
-
 def write_png(path: str, rgb: np.ndarray) -> None:
     """An 8-bit RGB PNG with every row under filter 0 (none), written with
     the standard library alone."""
@@ -2042,7 +2067,6 @@ def run_cli(argv, no_cv2=False):
     """``cli.main(argv)`` in this process with its stdout and stderr
     captured (and, with ``no_cv2``, cv2 hidden as on a machine without it).
     Returns (rc, stdout, stderr)."""
-    import contextlib
     import io
 
     from densebox_tpu_torch import cli
@@ -2097,12 +2121,26 @@ def served_json(model, rgb, infer_cfg, label_cfg, max_batch,
 
     from densebox_tpu_torch.infer import detect_batch
 
+    with torch.inference_mode():
+        out = detect_batch(model, served_batch(rgb, max_batch, canvas_hw)
+                           .cuda(), infer_cfg, label_cfg)
+    return front_end_json(out)
+
+
+def served_batch(rgb, max_batch, canvas_hw=KITTI_CANVAS):
+    """The server's device batch for ``rgb`` alone: the image in slot 0 of
+    a ``max_batch`` canvas batch, zeros elsewhere."""
+    import torch
+
     x = np.zeros((max_batch,) + tuple(canvas_hw) + (3,), np.float32)
     h, w = rgb.shape[:2]
     x[0, :h, :w] = rgb.astype(np.float32) / 255.0
-    with torch.inference_mode():
-        out = {k: v.cpu().numpy() for k, v in detect_batch(
-            model, torch.from_numpy(x).cuda(), infer_cfg, label_cfg).items()}
+    return torch.from_numpy(x)
+
+
+def front_end_json(dets):
+    """Slot 0 of a detections dict as the HTTP front end answers it."""
+    out = {k: v.cpu().numpy() for k, v in dets.items()}
     v = out["valid"][0]
     want = {"n": int(v.sum()),
             "boxes": np.round(out["boxes"][0][v], 2).tolist(),
@@ -2110,10 +2148,33 @@ def served_json(model, rgb, infer_cfg, label_cfg, max_batch,
     return json.loads(json.dumps(want))
 
 
+def served_on_cpu(model, rgb, infer_cfg, label_cfg, max_batch):
+    """The served call of ``rgb`` held to the CPU: the largest difference
+    between the card's maps of slot 0 (every pyramid level) and the CPU's
+    maps of that image, and the front end's answer from the card's maps
+    decoded on the CPU."""
+    import copy
+
+    import torch
+
+    from densebox_tpu_torch.infer import detector
+
+    x = served_batch(rgb, max_batch)
+    with torch.inference_mode():
+        card = detector.pyramid_maps(model, x.cuda(), infer_cfg)
+        cpu = detector.pyramid_maps(copy.deepcopy(model).cpu(), x[:1],
+                                    infer_cfg)
+        slot0 = [({k: v[:1].cpu() for k, v in m.items()}, s) for m, s in card]
+        err = max(float((a[k] - b[k]).abs().max())
+                  for (a, _), (b, _) in zip(slot0, cpu) for k in a)
+        dets = detector.detect_from_maps(slot0, tuple(x.shape[1:3]),
+                                         infer_cfg, label_cfg)
+    return err, front_end_json(dets)
+
+
 def phase_cli(bare_ms: float) -> None:
     """Phase 23: the command line on the card, as a user runs it, on a
     KITTI-format directory of PNG files written here."""
-    import contextlib
     import glob
     import shutil
     import signal
@@ -2360,17 +2421,16 @@ def phase_cli(bare_ms: float) -> None:
         rc = proc.wait(30)
         stop_s = time.perf_counter() - t0
         proc = None
-        # the server runs with torch's own precision flags (cuDNN's f32
-        # convolutions on TF32); the direct detect takes the same
-        flags = precision_flags()
-        set_precision_flags(TORCH_DEFAULTS)
-        try:
-            served_cfg = dataclasses.replace(cfg.infer, score_thresh=thresh)
-            wants = [served_json(model, imread(p), served_cfg, cfg.label, 8)
-                     for p in images[:8]]
-        finally:
-            set_precision_flags(flags)
+        # the server process sets no precision flag: the port holds its
+        # f32 at the reference's precision, as it does here
+        served_cfg = dataclasses.replace(cfg.infer, score_thresh=thresh)
+        wants = [served_json(model, imread(p), served_cfg, cfg.label, 8)
+                 for p in images[:8]]
         equal = [r == (200, w) for r, w in zip(responses, wants)]
+        on_cpu = [served_on_cpu(model, imread(p), served_cfg, cfg.label, 8)
+                  for p in images[:2]]
+        cpu_err = max(e for e, _ in on_cpu)
+        cpu_equal = [r == (200, w) for r, (_, w) in zip(responses, on_cpu)]
         emit({"phase": "cli_serve", "argv": "python3 -m "
               "densebox_tpu_torch.cli serve --workdir W --canvas 384 1248 "
               "--port P --thresh T", "seconds_to_healthz": up_s,
@@ -2380,7 +2440,8 @@ def phase_cli(bare_ms: float) -> None:
               "responses_equal_direct_detect": equal,
               "oversize": big, "garbage": junk, "rc_after_sigint": rc,
               "seconds_to_stop": stop_s,
-              "torch_default_flags_in_server": TORCH_DEFAULTS})
+              "first_2_maps_max_abs_err_vs_cpu": cpu_err, "maps_tol": 1e-4,
+              "first_2_equal_cpu_decode_of_card_maps": cpu_equal})
         emit({"phase": "cli_serve_latency", "requests": len(lat),
               "sequential": True, "canvas": list(KITTI_CANVAS),
               "max_batch": 8, "body": "375x1242 PNG (filter 0), ~1.4 MB",
@@ -2391,6 +2452,9 @@ def phase_cli(bare_ms: float) -> None:
                 f"cli serve: responses {bad} differ from a direct detect: "
                 f"{[responses[i] for i in bad][:1]} against "
                 f"{[wants[i] for i in bad][:1]}")
+        if cpu_err > 1e-4 or not all(cpu_equal):
+            raise AssertionError(f"cli serve against the CPU: maps {cpu_err}"
+                                 f", decode equal {cpu_equal}")
         if big[0] != 413 or junk[0] != 400 or rc != 0 or \
                 health_after["requests"] != 8 or health_after["status"] != "ok":
             raise AssertionError(f"cli serve: 413 {big}, 400 {junk}, rc {rc}, "
@@ -2469,9 +2533,6 @@ def phase_cli(bare_ms: float) -> None:
 
 # --- multi-device (phase 24) and the 'xla' int8 chain (phase 25) ----------
 
-# the parity flags of main(), for the processes phase 24 spawns
-PARITY_FLAGS = {"cudnn_tf32": False, "matmul_tf32": False,
-                "bf16_reduced": False}
 MULTI_CANVAS = (384, 1248)      # the CLI's KITTI canvas, 4 scales
 
 
@@ -2495,7 +2556,6 @@ def _multi_rank(rank: int, world: int, workdir: str, n_model: int) -> None:
                                              spatial_forward, unshard_state)
     from densebox_tpu_torch.train import create_train_state
 
-    set_precision_flags(PARITY_FLAGS)
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{workdir}/pg{world}",
                             world_size=world, rank=rank,
@@ -2890,9 +2950,6 @@ sys.modules["densebox_tpu"] = None
 sys.modules["jax"] = None
 import numpy as np
 import torch
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 from densebox_tpu_torch import export, infer
 from densebox_tpu_torch.infer import detector
 from densebox_tpu_torch.models import DenseBox, QuantDenseBox
@@ -2904,7 +2961,9 @@ def boom(*args, **kwargs):
 
 
 for owner, name in ((DenseBox, "forward"), (QuantDenseBox, "forward"),
-                    (QuantDenseBox, "_forward_xla"), (detector, "detect_batch"),
+                    (QuantDenseBox, "_forward_xla"),
+                    (QuantDenseBox, "_forward_fused"),
+                    (detector, "detect_batch"),
                     (detector, "detect_from_maps"), (infer, "detect_batch"),
                     (export, "detect_batch")):
     mock.patch.object(owner, name, boom).start()
@@ -3128,14 +3187,9 @@ def phase_export():
         proc.send_signal(signal.SIGINT)
         rc = proc.wait(30)
         proc = None
-        flags = precision_flags()       # the server keeps torch's defaults
-        set_precision_flags(TORCH_DEFAULTS)
-        try:
-            served_cfg = dataclasses.replace(cfg.infer, score_thresh=thresh)
-            wants = [served_json(model, rgb, served_cfg, cfg.label, 8,
-                                 (480, 640)) for rgb in rgbs]
-        finally:
-            set_precision_flags(flags)
+        served_cfg = dataclasses.replace(cfg.infer, score_thresh=thresh)
+        wants = [served_json(model, rgb, served_cfg, cfg.label, 8,
+                             (480, 640)) for rgb in rgbs]
         equal = [r == (200, w) for r, w in zip(responses, wants)]
         emit({"phase": "export_cli", "argv": "cli export --workdir W --out A "
               "--thresh T; python3 -m densebox_tpu_torch.cli serve "
@@ -3156,6 +3210,447 @@ def phase_export():
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "export_seconds", "seconds": time.perf_counter() - t_phase})
     return counts
+
+
+# --- the reference's precision (phase 27), certification (phase 28) ------
+
+@contextlib.contextmanager
+def recording(calls):
+    """Within it every ``detect_batch`` appends to ``calls`` its input batch,
+    the model's input at each level (the resized batch), the levels' maps
+    and its detections, each on the CPU."""
+    from densebox_tpu_torch.infer import detector
+
+    real_maps, real_decode = detector.pyramid_maps, detector.detect_from_maps
+
+    def maps(model, images, infer_cfg):
+        inputs = []
+
+        def forward(x):
+            inputs.append(x.cpu())
+            return model(x)
+
+        levels = real_maps(forward, images, infer_cfg)
+        calls.append({"images": images.cpu(), "inputs": inputs, "levels": [
+            ({k: v.cpu() for k, v in m.items()}, sc) for m, sc in levels]})
+        return levels
+
+    def decode(levels, image_hw, infer_cfg, label_cfg):
+        out = real_decode(levels, image_hw, infer_cfg, label_cfg)
+        calls[-1]["dets"] = {k: v.cpu() for k, v in out.items()}
+        return out
+
+    with mock.patch.object(detector, "pyramid_maps", maps), \
+            mock.patch.object(detector, "detect_from_maps", decode):
+        yield calls
+
+
+def maps_error(a_levels, b_levels) -> float:
+    """The largest difference between two pyramids' maps."""
+    return max(float((a[k] - b[k]).abs().max())
+               for (a, _), (b, _) in zip(a_levels, b_levels) for k in a)
+
+
+def decode_on_cpu_equal(call, infer_cfg, label_cfg) -> bool:
+    """Whether the card's recorded maps, decoded on the CPU, give the card's
+    detections bit for bit."""
+    from densebox_tpu_torch.infer import detector
+
+    dets = detector.detect_from_maps(call["levels"],
+                                     tuple(call["images"].shape[1:3]),
+                                     infer_cfg, label_cfg)
+    return all(bits_equal(dets[k], call["dets"][k]) for k in dets)
+
+
+def recorded_int8(codes):
+    """Patches of the int8 chain's two kernels that append each output (on
+    the CPU) to ``codes``."""
+    from densebox_tpu_torch.models import quant as mq
+
+    def wrap(fn):
+        def wrapped(*args, **kw):
+            y = fn(*args, **kw)
+            codes.append(y.cpu())
+            return y
+        return wrapped
+
+    return [mock.patch.object(mq, "qconv_int8", wrap(mq.qconv_int8)),
+            mock.patch.object(mq, "requant_epilogue",
+                              wrap(mq.requant_epilogue))]
+
+
+def codes_compared(a, b):
+    """(elements compared, elements that differ) of two lists of kernel
+    outputs, which must match in number and shape."""
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        raise AssertionError(f"int8 chains differ in their launches: "
+                             f"{len(a)} against {len(b)}")
+    return (sum(x.numel() for x in a),
+            sum(int((x != y).sum()) for x, y in zip(a, b)))
+
+
+def int8_card_vs_cpu(qcard, qcpu, calls, infer_cfg, label_cfg):
+    """The int8 chain on the card against the CPU on the same inputs: each
+    recorded call's level inputs (the card's resized batches) through
+    ``qcpu`` on the CPU, every int8 kernel output and map against the
+    card's (``calls[i]["codes"]`` where given, else ``detect_batch`` of
+    ``qcard`` on the card, recorded here). Returns (codes compared, codes
+    differing, maps equal, level-input elements where the CPU's own resize
+    differs from the card's)."""
+    import torch
+
+    from densebox_tpu_torch.infer import detect_batch, resize_linear
+
+    n = bad = resized = 0
+    maps_equal = True
+    for call in calls:
+        if "codes" not in call:
+            codes, rec = [], []
+            with contextlib.ExitStack() as stack:
+                for p in recorded_int8(codes):
+                    stack.enter_context(p)
+                stack.enter_context(recording(rec))
+                stack.enter_context(torch.inference_mode())
+                detect_batch(qcard, call["images"].cuda(), infer_cfg,
+                             label_cfg)
+            call = dict(rec[0], codes=codes)
+        cpu_codes = []
+        with contextlib.ExitStack() as stack:
+            for p in recorded_int8(cpu_codes):
+                stack.enter_context(p)
+            stack.enter_context(torch.inference_mode())
+            for x, (card_maps, _) in zip(call["inputs"], call["levels"]):
+                maps = qcpu(x)
+                maps_equal &= all(bits_equal(maps[k], card_maps[k])
+                                  for k in maps)
+                if x.shape != call["images"].shape:
+                    own = resize_linear(call["images"], tuple(x.shape[1:3]))
+                    resized += int((own != x).sum())
+        total, differ = codes_compared(call["codes"], cpu_codes)
+        n, bad = n + total, bad + differ
+    return n, bad, maps_equal, resized
+
+
+def upsample_vs_cpu(x):
+    """The x2 upsample of the bf16 NHWC ``x`` (on the card) against the
+    CPU's: as two bf16 ``torch.bmm`` (cuBLAS's bf16 GEMM) with its reduced
+    bf16 reduction as torch starts and held off, and as the port takes it
+    (``interp_bmm``: float32 products, rounded once): elements that differ
+    and the largest difference, each."""
+    import torch
+
+    from densebox_tpu_torch.device import reference_precision
+    from densebox_tpu_torch.models.densebox import (_interp_matrix,
+                                                    upsample2x_align_corners)
+
+    def bf16_bmm(t):
+        b, h, w, c = t.shape
+        aw = _interp_matrix(w, 2 * w, t.device, t.dtype)
+        ah = _interp_matrix(h, 2 * h, t.device, t.dtype)
+        y = torch.bmm(aw.expand(b * h, 2 * w, w), t.reshape(b * h, w, c))
+        return torch.bmm(ah.expand(b, 2 * h, h), y.reshape(b, h, 2 * w * c))
+
+    def compare(got, want):
+        diff = (got.cpu().float() - want.reshape(got.shape).float()).abs()
+        return {"differ": int((diff > 0).sum()),
+                "max_abs_diff": float(diff.max())}
+
+    want = upsample2x_align_corners(x.cpu())
+    out = {"shape": list(x.shape), "elements": want.numel()}
+    for mode in ("as_torch_starts", "held_off"):
+        with reference_precision("bfloat16", int8_chain=mode == "held_off"):
+            out[f"bf16_bmm_reduction_{mode}"] = compare(bf16_bmm(x), want)
+    out["port"] = compare(upsample2x_align_corners(x), want)
+    return out
+
+
+def phase_precision(bare_ms: float) -> None:
+    """Phase 27: the port's precision under torch's own flags (see the
+    module docstring)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from densebox_tpu_torch import cli, device as port_device, kitti_vehicle
+    from densebox_tpu_torch.data import synthetic_batch
+    from densebox_tpu_torch.infer import detect_batch
+    from densebox_tpu_torch.models import (DenseBox, QuantDenseBox,
+                                           quantize_densebox)
+    from densebox_tpu_torch.models import densebox as dm
+    from densebox_tpu_torch.models import quant as mq
+    from densebox_tpu_torch.train import (create_train_state, make_manager,
+                                          make_train_step, save_checkpoint)
+
+    t_phase = time.perf_counter()
+    flags = port_device.precision_flags()
+    emit({"phase": "precision_flags_at_start", "flags": flags,
+          "torch_defaults": TORCH_DEFAULTS})
+    if flags != TORCH_DEFAULTS:
+        raise AssertionError(f"precision flags {flags} at phase 27, not "
+                             f"torch's {TORCH_DEFAULTS}")
+    cfg = kitti_vehicle()                       # full width, f32
+    root = tempfile.mkdtemp(prefix="densebox_precision_")
+    try:
+        # (a) detect_batch and cli detect of an f32 model, card against CPU
+        state = create_train_state(DenseBox(cfg.model, device="cuda"), cfg,
+                                   device="cuda")
+        card = state.model.eval()
+        cpu = copy.deepcopy(card).cpu()
+        x = np.zeros((2,) + KITTI_CANVAS + (3,), np.float32)
+        rgbs = [np.round(img * 255).astype(np.uint8)
+                for img in request_images(2, KITTI_HW, seed=27)]
+        for i, rgb in enumerate(rgbs):
+            x[i, :rgb.shape[0], :rgb.shape[1]] = rgb / np.float32(255.0)
+        x = torch.from_numpy(x)
+        infer = with_live_threshold(card, x.cuda(), cfg.infer)
+        on_card, on_cpu = [], []
+        with torch.inference_mode():
+            with recording(on_card):
+                detect_batch(card, x.cuda(), infer, cfg.label)
+            with recording(on_cpu):
+                detect_batch(cpu, x, infer, cfg.label)
+        err = maps_error(on_card[0]["levels"], on_cpu[0]["levels"])
+        decode_equal = decode_on_cpu_equal(on_card[0], infer, cfg.label)
+        same = all(bits_equal(on_card[0]["dets"][k], on_cpu[0]["dets"][k])
+                   for k in on_cpu[0]["dets"])
+        emit({"phase": "precision_detect_f32", "model": "kitti_vehicle w1.0 "
+              "f32", "batch": 2, "canvas": list(KITTI_CANVAS),
+              "scales": list(infer.scales), "maps_max_abs_err": err,
+              "maps_tol": 1e-4, "cpu_decode_of_card_maps_equal": decode_equal,
+              "detections": int(on_card[0]["dets"]["valid"].sum()),
+              "card_detections_equal_cpu_detect": same})
+        if err > 1e-4 or not decode_equal:
+            raise AssertionError(f"f32 detect_batch against the CPU: maps "
+                                 f"{err}, decode equal {decode_equal}")
+
+        work = os.path.join(root, "w")
+        save_checkpoint(make_manager(os.path.join(work, "ckpt"), 1), state,
+                        cfg)
+        paths = []
+        for i, rgb in enumerate(rgbs):
+            paths.append(os.path.join(root, f"{i}.png"))
+            write_png(paths[-1], rgb)
+        argv = ["detect", "--workdir", work, "--image", *paths,
+                f"--thresh={infer.score_thresh!r}"]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            calls = []
+            with recording(calls):
+                rc, out, _ = run_cli(argv + ["--out", os.path.join(
+                    root, f"dets_{dev}")] + (["--device", "cpu"]
+                                             if dev == "cpu" else []))
+            if rc != 0 or len(calls) != len(paths):
+                raise AssertionError(f"cli detect on {dev}: rc {rc}, "
+                                     f"{len(calls)} calls")
+            runs[dev] = (calls, out)
+        errs = [maps_error(a["levels"], b["levels"])
+                for a, b in zip(runs["cuda"][0], runs["cpu"][0])]
+        decodes = [decode_on_cpu_equal(c, infer, cfg.label)
+                   for c in runs["cuda"][0]]
+        emit({"phase": "precision_cli_detect_f32", "argv": "detect "
+              "--workdir W --image <2 PNG, 375 x 1242> --thresh T [--device "
+              "cpu]", "maps_max_abs_err": errs, "maps_tol": 1e-4,
+              "cpu_decode_of_card_maps_equal": decodes,
+              "printed_equal": runs["cuda"][1] == runs["cpu"][1],
+              "printed": runs["cuda"][1].strip().splitlines()[:4]})
+        if max(errs) > 1e-4 or not all(decodes):
+            raise AssertionError(f"cli detect f32 against the CPU: maps "
+                                 f"{errs}, decode equal {decodes}")
+
+        # (b) cli detect --quantize: the int8 chains on the card against
+        # the CPU on the int8 state the CLI calibrated on the card
+        made, calls, codes = [], [], []
+        real_quantize = cli._quantize
+
+        def quantize(*args):
+            made.append(real_quantize(*args))
+            return made[-1]
+
+        with contextlib.ExitStack() as stack:
+            for p in recorded_int8(codes):
+                stack.enter_context(p)
+            stack.enter_context(recording(calls))
+            stack.enter_context(mock.patch.object(cli, "_quantize", quantize))
+            rc, out, _ = run_cli(argv + ["--quantize", "--out", os.path.join(
+                root, "dets_int8")])
+        if rc != 0 or len(made) != 1 or len(calls) != len(paths):
+            raise AssertionError(f"cli detect --quantize: rc {rc}")
+        per_call = len(codes) // len(calls)
+        for i, call in enumerate(calls):
+            call["codes"] = codes[i * per_call:(i + 1) * per_call]
+        state_dict = {k: v.cpu() for k, v in made[0].state_dict().items()}
+        chains = {}
+        for backend in ("fused", "xla"):
+            models = []
+            for dev in ("cuda", "cpu"):
+                q = QuantDenseBox(cfg.model, backend=backend, device=dev)
+                q.load_state_dict(state_dict)
+                models.append(q.eval())
+            given = calls if backend == "fused" else [
+                {k: v for k, v in c.items() if k != "codes"} for c in calls]
+            n, bad, maps_eq, resized = int8_card_vs_cpu(
+                *models, given, infer, cfg.label)
+            chains[backend] = {"codes_compared": n, "codes_differing": bad,
+                               "maps_equal": maps_eq,
+                               "level_inputs_cpu_resize_differs": resized}
+        calib_cpu = quantize_densebox(
+            cpu.state_dict(), cfg.model,
+            cli._load_calib_images(paths, "cpu"))
+        calib_same = all(bits_equal(calib_cpu[k], state_dict[k])
+                         for k in calib_cpu if k.endswith("in_scale"))
+        decodes = [decode_on_cpu_equal(c, infer, cfg.label) for c in calls]
+        emit({"phase": "precision_cli_detect_int8", "argv": "detect "
+              "--workdir W --image <2 PNG> --quantize --thresh T",
+              "chains": chains, "launches_per_call": per_call,
+              "cpu_decode_of_card_maps_equal": decodes,
+              "calibration_on_cpu_equal_card": calib_same})
+        if any(c["codes_differing"] or not c["maps_equal"]
+               or not c["codes_compared"] for c in chains.values()) \
+                or not all(decodes):
+            raise AssertionError(f"int8 chains against the CPU: {chains}, "
+                                 f"decode equal {decodes}")
+        del made, calls, codes
+
+        # (c) the f32 train step at B=32, card against CPU
+        step_card_vs_cpu("precision_train_step", "kitti_vehicle", cfg, 32,
+                         seed=27, f64=False)
+
+        # (d) the cost: the port's precision against TF32 forced on
+        def tf32_forced():
+            return mock.patch.dict(port_device.REFERENCE, cudnn_tf32=True,
+                                   matmul_tf32=True)
+
+        with tf32_forced(), port_device.reference_precision("float32"):
+            forced = port_device.precision_flags()
+        model = DenseBox(cfg.model, device="cuda")
+        st = create_train_state(model, cfg, device="cuda")
+        step = make_train_step(model, cfg, device="cuda")
+        batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(3),
+                                32, cfg.label, cfg.train.max_boxes,
+                                device="cuda")
+        modes = {"port": contextlib.nullcontext, "tf32": tf32_forced}
+        step_s = {m: [] for m in modes}
+        for turn in range(6):
+            for m in (("port", "tf32") if turn % 2 == 0 else ("tf32", "port")):
+                with modes[m]():
+                    for i in range(5):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        step(st, batch)
+                        torch.cuda.synchronize()
+                        if turn or i:           # the first step warms up
+                            step_s[m].append(time.perf_counter() - t0)
+        del model, st, step, batch
+        paper = init_model(cfg.model, "cuda")
+        imgs = torch.from_numpy(np.stack([np.pad(
+            im, ((0, 480 - im.shape[0]), (0, 640 - im.shape[1]), (0, 0)))
+            for im in request_images(8, (480, 640), seed=26)])).cuda()
+        call_s = {m: [] for m in modes}
+        with torch.inference_mode():
+            for turn in range(6):
+                for m in (("port", "tf32") if turn % 2 == 0
+                          else ("tf32", "port")):
+                    with modes[m]():
+                        call_s[m] += event_seconds(
+                            lambda: detect_batch(paper, imgs, cfg.infer,
+                                                 cfg.label), 5)
+        emit({"phase": "precision_cost", "flags_inside_with_tf32_forced":
+              forced, "train_step": {
+                  "model": "kitti_vehicle w1.0 f32", "batch": 32, "patch":
+                  cfg.label.patch_size, "timing": "host clock, synchronised, "
+                  "per step, 6 turns of 5 steps alternating",
+                  **{m: quartiles_ms(v) for m, v in step_s.items()}},
+              "detect_call": {
+                  "model": "kitti_vehicle w1.0 f32", "batch": 8,
+                  "canvas": [480, 640], "scales": list(cfg.infer.scales),
+                  "timing": "CUDA events per call, 6 turns of 5 calls",
+                  **{m: quartiles_ms(v) for m, v in call_s.items()}},
+              "bare_step_ms_phase_20": bare_ms, "card": card_line()})
+        if forced["cudnn_tf32"] is not True:
+            raise AssertionError("TF32 was not forced on for the A/B")
+        del paper
+
+        # the bf16 x2 upsample against the CPU, with and without cuBLAS's
+        # reduced bf16 reduction: the bf16 paper model's and the int8
+        # chain's (turbo, calibrated on the same images)
+        ups = {}
+
+        def capture(fn, key):
+            def wrapped(t):
+                ups.setdefault(key, t.detach().clone())
+                return fn(t)
+            return wrapped
+
+        (_, pcfg, _, _), (_, tcfg, _, _) = serving_cells()
+        with torch.inference_mode():
+            bf16_paper = init_model(pcfg, "cuda")
+            for key, batch in (("paper_bf16", imgs),
+                               ("paper_bf16_kitti_canvas", x.cuda())):
+                with mock.patch.object(dm, "upsample2x_align_corners",
+                                       capture(dm.upsample2x_align_corners,
+                                               key)):
+                    bf16_paper(batch)
+            sd = {k: v.cuda() for k, v in float_state(tcfg).items()}
+            q = QuantDenseBox(tcfg, device="cuda")
+            q.load_state_dict(quantize_densebox(sd, tcfg, imgs))
+            with mock.patch.object(mq, "upsample2x_align_corners", capture(
+                    mq.upsample2x_align_corners, "turbo_int8")):
+                q(imgs)
+            result = {k: upsample_vs_cpu(v) for k, v in ups.items()}
+        emit({"phase": "precision_bf16_upsample", "canvases": {
+                  "paper_bf16": [8, 480, 640], "turbo_int8": [8, 480, 640],
+                  "paper_bf16_kitti_canvas": [2, *KITTI_CANVAS]},
+              "upsample": result})
+        if any(r["port"]["differ"] for r in result.values()):
+            raise AssertionError(f"the port's bf16 upsample differs from "
+                                 f"the CPU's: {result}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "precision_seconds",
+          "seconds": time.perf_counter() - t_phase})
+
+
+def phase_certify() -> None:
+    """Phase 28: the certification tool on the card, one short row."""
+    import shutil
+    import tempfile
+
+    from densebox_tpu_torch.certify import STATS
+
+    root = tempfile.mkdtemp(prefix="densebox_certify_")
+    try:
+        out = os.path.join(root, "CERT.md")
+        cmd = [sys.executable, "-m", "densebox_tpu_torch.certify",
+               "--configs", "fast-s2d2-w0.5-lm4", "--steps", "200",
+               "--eval-batches", "2", "--workroot", os.path.join(root, "w"),
+               "--out", out]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=900)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"certify exited with {res.returncode}: "
+                                 f"{res.stdout[-2000:]}{res.stderr[-3000:]}")
+        rows = [json.loads(ln) for ln in res.stdout.splitlines()
+                if ln.startswith('{"config"')]
+        emit({"phase": "certify", "argv": " ".join(cmd[1:]), "rows": rows,
+              "wall_s": wall, "card": card_line()})
+        emit({"phase": "certify_table",
+              "lines": open(out).read().splitlines()})
+        if len(rows) != 1:
+            raise AssertionError(f"certify printed {len(rows)} rows")
+        row = rows[0]
+        aps = [row[k]["ap@0.50"] for k in ("bf16", "int8_ptq")]
+        dists = row.get("nme_dist", {})
+        finite = (all(np.isfinite(aps)) and set(dists) == {"bf16", "int8"}
+                  and all(d["n"] > 0 and all(np.isfinite(d[k]) for k in STATS)
+                          for d in dists.values()))
+        if not finite:
+            raise AssertionError(f"certify row not finite: {row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def cv2_version():
@@ -3193,15 +3688,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import densebox_tpu_torch  # noqa: F401  (alone, without the repo: fail here, silent)
 
-    # what a process of the port runs with unless it sets them (the CLI's
-    # server subprocess, phase 23)
+    from densebox_tpu_torch.device import precision_flags
+
+    # the script sets no precision flag: the port holds the reference's
+    # precision itself (phase 27), and leaves the flags as it found them
     TORCH_DEFAULTS.update(precision_flags())
-    # f32 parity runs at full f32, as the JAX reference's Precision.HIGHEST
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # bf16 products (the int8 path's x2 upsample) reduce in f32 as on the
-    # CPU, so that the card matches the CPU bit for bit
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     card = card_line()
     print(card, flush=True)
@@ -3246,6 +3737,8 @@ def main() -> int:
     multi = phase_multi_device(bare_ms)
     multi["xla_int8_call"] = phase_xla_int8()
     multi.update(phase_export())
+    phase_precision(bare_ms)
+    phase_certify()
 
     # (name, source, TPU kernel it replaces, the main-path run its launch
     # count is read from, its counter)
@@ -3259,6 +3752,12 @@ def main() -> int:
         ("rasterize_landmarks", "labels", "labels.py:79", "train_malf",
          "rasterize_landmarks"),
         ("ohem_select", "ohem", "ohem.py:53", "train_kitti", "ohem")]
+    flags = precision_flags()
+    emit({"phase": "precision_flags_at_end", "flags": flags,
+          "torch_defaults": TORCH_DEFAULTS})
+    if flags != TORCH_DEFAULTS:
+        raise AssertionError(f"the precision flags end as {flags}, not as "
+                             f"torch started: {TORCH_DEFAULTS}")
     print(card, flush=True)
     kernels = []
     for name, src, replaces, run, counter in table:

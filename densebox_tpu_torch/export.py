@@ -12,9 +12,10 @@ opaque node of the program, so the program launches the hand-written
 kernels when it runs on the card and never holds their plain versions.
 
 Format: ``MAGIC``, one strict-JSON metadata line (the input contract and
-provenance: batch, canvas, quantized, backend, landmarks, scales, input,
-device, torch), then the ``torch.export.save`` payload. ``load_exported``
-returns a callable with ``make_detect_fn``'s signature and outputs; loading
+provenance: batch, canvas, quantized, backend, compute_dtype, landmarks,
+scales, input, device, torch), then the ``torch.export.save`` payload.
+``load_exported`` returns a callable with ``make_detect_fn``'s signature
+and outputs; loading
 needs torch and the operator registrations of ``ops/kernels/`` (imported by
 this module), not the checkpoint, the config or the model code.
 
@@ -35,7 +36,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from densebox_tpu_torch.device import resolve_device
+from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.infer.detector import detect_batch
 # importing the kernel modules registers the program's custom operators
 from densebox_tpu_torch.ops.kernels import (  # noqa: F401
@@ -101,6 +102,7 @@ def artifact_meta(model: nn.Module, infer_cfg, batch: int,
     backend = getattr(model, "backend", None)
     return {"batch": batch, "canvas": [h, w],
             "quantized": backend is not None, "backend": backend,
+            "compute_dtype": model.cfg.compute_dtype,
             "landmarks": model.cfg.num_landmarks,
             "scales": list(infer_cfg.scales),
             "input": f"({batch}, {h}, {w}, 3) float32 RGB in [0, 1]"}
@@ -136,8 +138,10 @@ def load_exported(path: str, device=None):
     """Load an artifact: returns ``(call, meta)``, where ``call(images)``
     runs the baked pipeline on a ``(batch, H, W, 3)`` float32 batch of the
     exported contract, on ``device`` (the card when none is given), and
-    returns the detections dict of ``make_detect_fn``. Raises if the
-    artifact was exported for another device."""
+    returns the detections dict of ``make_detect_fn``, at the model's
+    precision (``device.reference_precision`` of the recorded compute
+    dtype and int8 chain). Raises if the artifact was exported for another
+    device."""
     dev = _card(resolve_device(device))
     with open(path, "rb") as f:
         if f.read(len(MAGIC)) != MAGIC:
@@ -150,8 +154,14 @@ def load_exported(path: str, device=None):
             f"{path} was exported for {meta['device']} and cannot run on "
             f"{dev}: re-export it there (cli export --device {dev})")
     module = torch.export.load(io.BytesIO(payload)).module()
+    # the precision switches are the process's, not the program's: an
+    # artifact written before ``compute_dtype`` was recorded runs at
+    # float32's, which changes no bfloat16 operation
+    precision = reference_precision(meta.get("compute_dtype", "float32"),
+                                    int8_chain=meta["quantized"])
 
     @torch.inference_mode()
+    @precision
     def call(images: torch.Tensor) -> Dict[str, torch.Tensor]:
         return module(images)
 

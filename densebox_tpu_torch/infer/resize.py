@@ -18,6 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from densebox_tpu_torch.device import reference_precision
 from densebox_tpu_torch.ops.decode import rdiv
 from densebox_tpu_torch.utils.constants import constant_cache
 
@@ -90,8 +91,11 @@ def resize_linear(images: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     _, h, w, _ = images.shape
     hs, ws = hw
     x = images
-    if hs != h:
-        x = torch.einsum("oh,bhwc->bowc", _weights(h, hs, x.device, x.dtype), x)
-    if ws != w:
-        x = torch.einsum("pw,bhwc->bhpc", _weights(w, ws, x.device, x.dtype), x)
+    with reference_precision(x.dtype):      # jax's resize: Precision.HIGHEST
+        if hs != h:
+            x = torch.einsum("oh,bhwc->bowc",
+                             _weights(h, hs, x.device, x.dtype), x)
+        if ws != w:
+            x = torch.einsum("pw,bhwc->bhpc",
+                             _weights(w, ws, x.device, x.dtype), x)
     return x.contiguous()

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from densebox_tpu_torch.config import ModelCfg
-from densebox_tpu_torch.device import resolve_device
+from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.ops.decode import div
 from densebox_tpu_torch.utils.constants import constant_cache
 
@@ -110,18 +110,34 @@ def _interp_matrix(n_in: int, n_out: int, device: torch.device,
             device, dtype)
 
 
+def interp_bmm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a`` (m, k), broadcast over the batch with stride 0, times each
+    (k, n) matrix of ``x`` (B, k, n), in x's dtype. A bfloat16 product is
+    taken in float32 (TF32 off) and rounded to bfloat16 once, as the CPU's
+    bfloat16 product and the reference's bfloat16 dot (float32
+    accumulation) round: cuBLAS's bfloat16 GEMM gives another last bit in
+    rare elements, with or without its reduced-precision reduction
+    (measured on the H100), while each output's float32 sum of its two
+    exact products is the same in any order."""
+    if x.dtype != torch.bfloat16:
+        return torch.bmm(a.expand(x.shape[0], *a.shape), x)
+    with reference_precision(torch.float32):
+        y = torch.bmm(a.float().expand(x.shape[0], *a.shape), x.float())
+    return y.to(x.dtype)
+
+
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """x2 bilinear upsample (align_corners) of an NHWC tensor as two
-    products with the interpolation matrices, W first as in the JAX model.
-    Returns a contiguous NHWC tensor. Batched products against the matrix
-    broadcast with stride 0, so that neither operand is copied or
-    transposed (``torch.matmul`` and ``einsum`` would transpose the large
-    activation)."""
+    products with the interpolation matrices (in x's dtype), W first as in
+    the JAX model, each rounded to x's dtype (``interp_bmm``). Returns a
+    contiguous NHWC tensor. Batched products against the matrix broadcast
+    with stride 0, so that the activation is neither copied nor transposed
+    (``torch.matmul`` and ``einsum`` would transpose it)."""
     b, h, w, c = x.shape
     aw = _interp_matrix(w, 2 * w, x.device, x.dtype)
     ah = _interp_matrix(h, 2 * h, x.device, x.dtype)
-    y = torch.bmm(aw.expand(b * h, 2 * w, w), x.reshape(b * h, w, c))
-    y = torch.bmm(ah.expand(b, 2 * h, h), y.reshape(b, h, 2 * w * c))
+    y = interp_bmm(aw, x.reshape(b * h, w, c))
+    y = interp_bmm(ah, y.reshape(b, h, 2 * w * c))
     return y.reshape(b, 2 * h, 2 * w, c)
 
 
@@ -197,7 +213,9 @@ class DenseBox(nn.Module):
     optimizer then updates float32 weights under a bfloat16 forward. A
     bfloat16 server that never trains can set ``param_dtype="bfloat16"`` to
     hold the weights in bfloat16 and save the casts; the numbers are the
-    same. Built on the card unless ``device`` names another device.
+    same. Built on the card unless ``device`` names another device. A
+    float32 forward runs in full float32 (``device.reference_precision``),
+    as the reference's ``Precision.HIGHEST``.
 
     Call with NHWC images (H, W divisible by ``cfg.min_divisor``); returns a
     dict of stride-4 NHWC float32 maps: ``score`` (B, H/4, W/4, 1), ``loc``
@@ -299,6 +317,10 @@ class DenseBox(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 dropout_keep: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
+        with reference_precision(self.cfg.compute_dtype):
+            return self._forward(images, train, generator, dropout_keep)
+
+    def _forward(self, images, train, generator, dropout_keep):
         cfg = self.cfg
         check_divisible(cfg, images)
         dtype = getattr(torch, cfg.compute_dtype)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from densebox_tpu_torch.config import ModelCfg
-from densebox_tpu_torch.device import resolve_device
+from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.models.densebox import (DenseBox, check_divisible,
                                                 space_to_depth, trunk_plan,
                                                 upsample2x_align_corners)
@@ -147,7 +147,8 @@ def quantize_densebox(state_dict, cfg: ModelCfg, calib_images: torch.Tensor
     reads the same ``feat``, and the chain quantises it per head at that
     scale."""
     dev = calib_images.device
-    taps = calibration_taps(state_dict, cfg, calib_images)
+    with reference_precision(GLUE, int8_chain=True):
+        taps = calibration_taps(state_dict, cfg, calib_images)
     sd = {}
     for name in conv_names(cfg):
         sd[f"{name}.w_q"], sd[f"{name}.w_scale"] = quant_weight(
@@ -316,10 +317,14 @@ class QuantDenseBox(nn.Module):
         return out
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        check_divisible(self.cfg, images)
+        with reference_precision(GLUE, int8_chain=True):
+            if self.backend == "xla":
+                return self._forward_xla(images)
+            return self._forward_fused(images)
+
+    def _forward_fused(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        check_divisible(cfg, images)
-        if self.backend == "xla":
-            return self._forward_xla(images)
         in_scale = {n: q.in_scale for n, q in self._q.items()}
         nxt = dict(zip(self.convs[:-1], self.convs[1:]))
         # trunk: quantise the image once, then int8 from conv to conv

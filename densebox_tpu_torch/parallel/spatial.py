@@ -31,8 +31,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from densebox_tpu_torch.device import reference_precision
 from densebox_tpu_torch.models.densebox import (
-    DenseBox, _interp_matrix, interp_matrix_align_corners, space_to_depth)
+    DenseBox, _interp_matrix, interp_bmm, interp_matrix_align_corners,
+    space_to_depth)
 
 
 def shard_rows(h: int, n: int, divisor: int) -> List[Tuple[int, int]]:
@@ -117,7 +119,15 @@ def spatial_forward(model: DenseBox, images: torch.Tensor,
     NHWC float32 maps as ``model(images)``, whole, on every rank.
 
     H must be a multiple of ``cfg.min_divisor`` with at least one block of
-    it per rank (``shard_rows``); W as for the model."""
+    it per rank (``shard_rows``); W as for the model. At the model's
+    precision, as its forward (``device.reference_precision``)."""
+    with reference_precision(model.cfg.compute_dtype):
+        return _spatial_forward(model, images, group)
+
+
+def _spatial_forward(model: DenseBox, images: torch.Tensor,
+                     group: Optional[dist.ProcessGroup]
+                     ) -> Dict[str, torch.Tensor]:
     ring = _Ring(group)
     cfg = model.cfg
     b, h, w, _ = images.shape
@@ -147,9 +157,9 @@ def spatial_forward(model: DenseBox, images: torch.Tensor,
     f4e = ring.halo(x.permute(0, 2, 3, 1))          # (B, rows8 + 2, W8, C)
     _, he, w8, c = f4e.shape
     aw = _interp_matrix(w8, 2 * w8, dev, dtype)
-    y = torch.bmm(aw.expand(b * he, 2 * w8, w8), f4e.reshape(b * he, w8, c))
+    y = interp_bmm(aw, f4e.reshape(b * he, w8, c))
     ah = torch.from_numpy(shard_upsample_matrix(h8, lo8, rows8)).to(dev, dtype)
-    y = torch.bmm(ah.expand(b, 2 * rows8, he), y.reshape(b, he, 2 * w8 * c))
+    y = interp_bmm(ah, y.reshape(b, he, 2 * w8 * c))
     up = y.reshape(b, 2 * rows8, 2 * w8, c)
 
     z = model._heads(f3, up, False, None, None)     # (B, rows/4, W/4, n)

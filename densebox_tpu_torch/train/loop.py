@@ -8,7 +8,9 @@ and salt and on the step count (``step_seed``): the step reseeds the state's
 generator at its top, as the JAX package folds the step into its key. So
 the same step from the same parameters and momentum gives the same result
 bit for bit, on the card too (``repeatable_kernels``), and a run resumed
-from a checkpoint continues as the uninterrupted run would have.
+from a checkpoint continues as the uninterrupted run would have. The whole
+step, backward included, runs at the reference's precision
+(``device.reference_precision``: no TF32 under a float32 model).
 
 Optimizer, as the JAX package chains it: clip the gradients by their global
 norm, add ``weight_decay * p``, SGD momentum trace ``t = g + momentum * t``,
@@ -30,7 +32,7 @@ import torch
 
 from densebox_tpu_torch.config import DenseBoxConfig
 from densebox_tpu_torch.data.patches import patch_draws, sample_patches
-from densebox_tpu_torch.device import resolve_device
+from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.models.convert import init_params
 from densebox_tpu_torch.models.densebox import DenseBox, dropout_keep_mask
 from densebox_tpu_torch.ops.labels import rasterize
@@ -230,6 +232,7 @@ def build_train_step(model: DenseBox, cfg: DenseBoxConfig, device,
         crop = cfg.model.compute_dtype
     crop_dtype = torch.bfloat16 if crop == "bfloat16" else None
 
+    @reference_precision(cfg.model.compute_dtype)
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    draws: Optional[Mapping] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

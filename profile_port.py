@@ -613,9 +613,6 @@ def main(argv=None) -> int:
         print("profile_port: torch.cuda.is_available() is false; this "
               "script runs only on a CUDA card", file=sys.stderr)
         return 1
-    # as chip_smoke.py's serve phases run: f32 at full precision
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line(), flush=True)
     host = torch.from_numpy(np.random.RandomState(0).rand(*CANVAS)
                             .astype(np.float32)).pin_memory()

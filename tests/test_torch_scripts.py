@@ -65,6 +65,7 @@ import densebox_tpu_torch.parallel, densebox_tpu_torch.parallel.mesh
 import densebox_tpu_torch.parallel.spatial
 import densebox_tpu_torch.parallel.multihost, densebox_tpu_torch.entry
 import densebox_tpu_torch.export, densebox_tpu_torch.utils.constants
+import densebox_tpu_torch.certify, densebox_tpu_torch.device
 import chip_smoke, profile_port
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "jaxlib", "optax", "orbax", "tensorflow",
@@ -78,8 +79,9 @@ def test_port_loads_no_jax():
     """Importing the port (its train, data and utils subpackages, the
     trainer, the checkpoints, the logger, the command line, eval, the KITTI
     reader, the loader and its native core, the image decoder, the
-    multi-device layer ``parallel/``, ``entry.py``, ``export.py`` and both
-    scripts included) in a fresh interpreter loads no module of jax, flax,
+    multi-device layer ``parallel/``, ``entry.py``, ``export.py``, the
+    certification ``certify.py`` and both scripts included) in a fresh
+    interpreter loads no module of jax, flax,
     jaxlib, optax, orbax, tensorflow or the JAX package."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),
@@ -96,9 +98,55 @@ def test_import_rule_covers_the_command_line_modules():
                  "data/pipeline.py", "data/imageio.py", "utils/viz.py",
                  "utils/logging.py", "serve.py", "parallel/__init__.py",
                  "parallel/mesh.py", "parallel/spatial.py",
-                 "parallel/multihost.py", "entry.py"):
+                 "parallel/multihost.py", "entry.py", "certify.py",
+                 "device.py"):
         assert os.path.join("densebox_tpu_torch", path) in PACKAGE, path
     assert "chip_smoke.py" in SCRIPTS
+
+
+# torch's process-wide precision switches, which only the port's
+# ``device.reference_precision`` sets (and restores)
+_SWITCHES = ("allow_tf32", "allow_bf16_reduced_precision_reduction")
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "profile_port.py"]
+                         + PACKAGE)
+def test_only_the_precision_helper_sets_a_precision_switch(path):
+    """No script and no module but ``device.py`` assigns torch's TF32 or
+    reduced-bf16-reduction switches: the port keeps the reference's
+    precision itself, so the scripts run under torch's own flags."""
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    setters = [node.lineno for node in ast.walk(tree)
+               if isinstance(node, (ast.Assign, ast.AugAssign))
+               for t in (node.targets if isinstance(node, ast.Assign)
+                         else [node.target])
+               if isinstance(t, ast.Attribute) and t.attr in _SWITCHES]
+    mentions = [i for i, line in enumerate(open(os.path.join(REPO, path)), 1)
+                if any(s in line for s in _SWITCHES)]
+    if path == os.path.join("densebox_tpu_torch", "device.py"):
+        assert mentions and not setters
+    else:
+        assert not setters and not mentions, (path, setters, mentions)
+
+
+def test_chip_smoke_drives_the_precision_and_certify_phases():
+    """``main`` runs phases 27 (precision, under torch's flags as it starts)
+    and 28 (the certification tool) after phase 26, checks the flags at
+    the end, and the docstring lists both phases."""
+    import chip_smoke
+
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    calls = sorted((n.lineno, n.col_offset, n.func.id) for n in ast.walk(main)
+                   if isinstance(n, ast.Call) and isinstance(n.func, ast.Name))
+    order = [name for _, _, name in calls if name.startswith("phase_")]
+    assert order[-3:] == ["phase_export", "phase_precision", "phase_certify"]
+    assert " 27. precision" in chip_smoke.__doc__
+    assert " 28. certification" in chip_smoke.__doc__
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    assert '"precision_flags_at_end"' in src
+    assert "densebox_tpu_torch.certify" in src
 
 
 _CV2_AT_TOP = ("cli.py", "eval.py", "serve.py", "data/imageio.py",
