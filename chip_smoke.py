@@ -19,8 +19,12 @@ not 0):
      port on the CPU (1e-3 absolute), then a bf16 forward;
   6. serve: a DetectServer with the paper model in bf16, 480x640 canvas,
      max_batch 8, the preset's 4-scale pyramid; 24 requests from 8 threads,
-     answered, coalesced, and each equal to a direct detect_batch of the
-     batch its device call ran;
+     answered, coalesced, and each equal bit for bit to a direct
+     detect_batch of its image alone in slot 0 of a zero batch of 8, as
+     is each of the first 8 images detected in its slot of a batch of 8
+     different images (``DenseBox._conv`` runs a batch that cuDNN would
+     compute differently by slot one image a call: the bf16 512-channel
+     convs at the 0.7071 and 0.3536 levels);
   7. the same serve run with the turbo trunk (s2d4, depth 3, width 0.25);
   8. int8 conv kernel against its plain version on the card, in its three
      output modes, at every layer shape of the turbo model (B=8), paper
@@ -41,7 +45,7 @@ not 0):
      (B=2, 240x320): every int8 code and map identical; the fused and the
      hybrid chain identical on the card; the forward's time on the card;
  11. serve the turbo model in int8 (calibrated on the card from the canvas
-     batch, one scale), as phase 7: served equal to direct, one int8 conv
+     batch, one scale), as phase 7: served equal to alone, one int8 conv
      launch per conv per device call, all 14 on the tensor-core variant,
      one NMS launch per device call;
  12. the same with the hybrid chain (int32 conv, then requant);
@@ -63,8 +67,8 @@ not 0):
      'std' scale selection counted where it differs;
  15. serve malf_face() in bf16 (480x640 canvas, max_batch 8, its pyramid
      and anchors, lm_topk 64), as phase 6: served equal to a direct
-     detect_batch bit for bit, landmarks included; one NMS and one window
-     launch per device call;
+     detect_batch of the image alone bit for bit, landmarks included; one
+     NMS and one window launch per device call;
  16. serve the bench's landmark pipeline in int8: the turbo trunk with 4
      landmarks and refine, no anchors (shared origins), calibrated on the
      card, one scale: as phase 15, plus one int8 conv launch per conv;
@@ -176,7 +180,8 @@ not 0):
      constant caches were emptied, after which the live detect is unchanged
      and no int8 epilogue vector was kept; then export, save, reload: the
      artifact's detections equal the live ``detect_batch`` of the same
-     batch bit for bit, with the same launches per call (1 NMS; 14
+     batch bit for bit, and each of its slots the live detect of that
+     image alone in slot 0, with the same launches per call (1 NMS; 14
      ``qconv_int8``, all on the tensor cores; 1 window gather), with the
      export, save and load seconds, the artifact's size and the device-call
      time of artifact and live path (CUDA events, in turns, median (q1,
@@ -212,7 +217,23 @@ not 0):
  28. certification: ``python -m densebox_tpu_torch.certify`` as a
      subprocess for fast-s2d2-w0.5-lm4 at 200 steps and 2 eval batches:
      one JSON row with finite AP@0.50 in bf16 and int8 and a finite
-     landmark error distribution, and its wall time.
+     landmark error distribution, and its wall time;
+ 29. the port's bench and load test, as a user runs them: ``python -m
+     densebox_tpu_torch.bench`` (through its ``main`` in this process, so
+     that the kernels' counters are readable) at 480 x 640 for turbo int8
+     at B=256 (the README's headline command), fast int8 at B=128 on the
+     fused and the hybrid chain, paper bf16 at B=64, turbo int8 with 4
+     landmarks at B=256, and ``--mode train`` at turbo's B=256 with 240 px
+     patches, without and with landmarks: each last line and info line
+     printed, the checksum finite, the kernel launches of one pass as the
+     model predicts; one bench call of turbo int8 at B=256 equal bit for bit
+     to ``detect_batch`` of its batch; ``python -m
+     densebox_tpu_torch.loadtest --turbo-int8 --clients 1 8 16 32``: one
+     line a client count, every request answered, fewer device calls than
+     requests from 8 clients on (one client's every request is a call of
+     its own), every answer equal to a detect of its image alone in slot 0
+     of a zero batch, one NMS and 14 ``qconv_int8`` launches per device
+     call (warm-ups included).
 At the end torch's three precision flags read as they did at the start.
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
@@ -840,6 +861,38 @@ def mismatch(res, direct):
     return out
 
 
+def alone_batch(img, max_batch, canvas_hw):
+    """A server's device batch for ``img`` (float, in [0, 1]) alone: the
+    image in slot 0 of a ``max_batch`` canvas batch, zeros elsewhere."""
+    import torch
+
+    x = np.zeros((max_batch,) + tuple(canvas_hw) + (3,), np.float32)
+    x[0, :img.shape[0], :img.shape[1]] = img
+    return torch.from_numpy(x)
+
+
+def slot_detections(out, s):
+    """Slot ``s`` of a detections dict as a served result: numpy arrays of
+    its valid detections (boxes, scores and, with landmarks, lm_points and
+    lm_valid)."""
+    v = out["valid"][s].cpu().numpy()
+    return {k: t[s].cpu().numpy()[v] for k, t in out.items() if k != "valid"}
+
+
+def served_detections(model, img, infer_cfg, label_cfg, max_batch,
+                      canvas_hw):
+    """What a server answers for ``img`` (letterboxed, no downscale) alone
+    in its device call: slot 0 of a direct detect of ``alone_batch``."""
+    import torch
+
+    from densebox_tpu_torch.infer import detect_batch
+
+    with torch.inference_mode():
+        out = detect_batch(model, alone_batch(img, max_batch, canvas_hw)
+                           .cuda(), infer_cfg, label_cfg)
+    return slot_detections(out, 0)
+
+
 def init_quant_model(cfg, calib, backend="fused", seed=0, loc_bias=0.0):
     """The int8 model of the float model ``init_model`` makes, calibrated
     on ``calib`` (on its device)."""
@@ -971,6 +1024,20 @@ def phase_window():
     args = timed["malf", torch.bfloat16]
     times = (device_ms(lambda: kw.gather_windows(*args)),
              median_ms(lambda: kw.gather_windows_reference(*args), 20))
+    # the library call: one torch.take of the flat maps at an index of
+    # every window element, built beforehand
+    maps, sel, y0, x0, win = args
+    _, n_s, n_l, hm, wm = maps.shape
+    ar = torch.arange(win, device="cuda")
+    rows = (y0.long().clamp(0, hm - win)[..., None] + ar)[..., :, None]
+    cols = (x0.long().clamp(0, wm - win)[..., None] + ar)[..., None, :]
+    plane = ((torch.arange(maps.shape[0], device="cuda")[:, None, None]
+              * n_s + sel.long()[:, :, None]) * n_l
+             + torch.arange(n_l, device="cuda"))[..., None, None]
+    flat = (plane * hm + rows) * wm + cols
+    if not torch.equal(torch.take(maps, flat), kw.gather_windows(*args)):
+        raise AssertionError("window library call differs from the kernel")
+    library_ms = device_ms(lambda: torch.take(maps, flat))
     device = {f"{n}_{str(dt).split('.')[-1]}":
               device_ms(lambda: kw.gather_windows(*a))
               for (n, dt), a in timed.items()}
@@ -986,8 +1053,10 @@ def phase_window():
               "kernel": median_ms(lambda: kw.gather_windows(*args), 50),
               "plain": times[1]},
           "bound_ms_malf_bf16": bnd[0],
+          "library_ms_malf_bf16": library_ms,
+          "library_call": "torch.take(maps, index) with a prebuilt index",
           "empty_launch_ms_grid512_block256": floor_ms})
-    return err, times, bnd, None, {"floor_ms": floor_ms}
+    return err, times, bnd, library_ms, {"floor_ms": floor_ms}
 
 
 def phase_decode_card_vs_cpu():
@@ -1035,29 +1104,18 @@ def phase_decode_card_vs_cpu():
                              f"CPU on the same maps: {same}")
 
 
-def kernel_modules():
-    from densebox_tpu_torch.ops.kernels import (labels, nms, ohem, qconv,
-                                                requant, window)
-
-    return {"nms": nms, "qconv": qconv, "requant": requant, "window": window,
-            "labels": labels, "ohem": ohem}
-
-
 def reset_launches() -> None:
-    for mod in kernel_modules().values():
-        mod.reset_launches()
+    from densebox_tpu_torch.ops.kernels import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def read_launches() -> dict:
     """Every kernel's launch count since the last reset, by kernel name (the
     labels module counts its two kernels apart)."""
-    out = {}
-    for name, mod in kernel_modules().items():
-        if isinstance(mod.launches, dict):
-            out.update(mod.launches)
-        else:
-            out[name] = mod.launches
-    return out
+    from densebox_tpu_torch.ops.kernels import launch_counts
+
+    return launch_counts()
 
 
 def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
@@ -1085,14 +1143,6 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
 
     server = DetectServer(model, infer_cfg, label_cfg, canvas_hw=canvas_hw,
                           max_batch=8, batch_window_ms=15.0)
-    batches = []          # each device call's batch, as the card got it
-    serve_detect = server._detect
-
-    def recording(batch):
-        batches.append(batch.clone())
-        return serve_detect(batch)
-
-    server._detect = recording
     results, lat = [None] * n_req, [None] * n_req
     try:
         reset_launches()
@@ -1118,38 +1168,21 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
         server.close()
     if any(t.is_alive() for t in threads) or any(r is None for r in results):
         raise AssertionError(f"{name}: not every request was answered")
-    # Each request was served letterboxed (no downscale: no image is larger
-    # than the canvas, so no change of coordinates) from one slot of one
-    # device call. cuDNN's kernels for some convolution shapes make an
-    # image's maps depend, in the last bit, on its slot in the batch (seen
-    # on conv4_2 at odd map widths), so each served result is held to a
-    # direct detect_batch of the very batch its call ran, bit for bit; its
-    # slot is found by content. How many of the first 8 requests differ
-    # from a detect of `canvas` (the same images in other slots) is printed.
-    def detect(batch):
-        with torch.inference_mode():
-            out = {k: v.cpu().numpy() for k, v in detect_batch(
-                model, batch, infer_cfg, label_cfg).items()}
-        return [{k: v[s][out["valid"][s]] for k, v in out.items()
-                 if k != "valid"} for s in range(len(batch))]
-
-    direct, slot_of = [], {}
-    for batch in batches:
-        for s, img in enumerate(batch.cpu().numpy()):
-            slot_of.setdefault(img.tobytes(), (len(direct), s))
-        direct.append(detect(batch))
-    diffs = {}
-    for i, img in enumerate(imgs):
-        lb = np.zeros(tuple(canvas_hw) + (3,), np.float32)
-        lb[:img.shape[0], :img.shape[1]] = img
-        c, s = slot_of.get(lb.tobytes(), (None, None))
-        d = ("in no device call's batch" if c is None
-             else mismatch(results[i], direct[c][s]))
-        if d is not None:
-            diffs[i] = d
-    canvas_direct = detect(canvas_t)
-    slot_dependent = [i for i in range(8)
-                      if mismatch(results[i], canvas_direct[i]) is not None]
+    # Each request was served letterboxed (no image is larger than the
+    # canvas: no change of coordinates) from one slot of one device call,
+    # beside whichever requests shared it. It is held, bit for bit, to a
+    # direct detect of its image alone in slot 0 of a zero batch of the
+    # server's size; and each of the first 8 images' detect in its slot of
+    # `canvas` (beside 7 other images) to the same.
+    alone = [served_detections(model, img, infer_cfg, label_cfg, 8,
+                               canvas_hw) for img in imgs]
+    diffs = {i: d for i, d in enumerate(
+        mismatch(res, want) for res, want in zip(results, alone))
+        if d is not None}
+    with torch.inference_mode():
+        canvas_out = detect_batch(model, canvas_t, infer_cfg, label_cfg)
+    slot_dependent = [i for i in range(8) if mismatch(
+        slot_detections(canvas_out, i), alone[i]) is not None]
     n_out = [len(r["boxes"]) for r in results]
     finite = all(np.isfinite(r[k]).all() for r in results
                  for k in ("boxes", "scores", "lm_points") if k in r)
@@ -1179,16 +1212,17 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
           "nms_out_per_request": n_out, **lm,
           "req_per_s": n_req / wall, "p50_ms": float(np.median(lat)) * 1e3,
           "latency_samples": n_req, "finite": finite,
-          "served_equals_direct": not diffs, "mismatches": diffs,
+          "served_equals_alone_in_slot_0": not diffs, "mismatches": diffs,
           "differ_from_canvas_slot": slot_dependent})
     if not finite or sum(n_out) == 0:
         raise AssertionError(f"{name}: detections not finite or none at all")
     if lm and not sum(lm["lm_valid_per_request"]):
         raise AssertionError(f"{name}: every landmark took the centre "
                              f"fallback")
-    if diffs:
+    if diffs or slot_dependent:
         raise AssertionError(f"{name}: served detections differ from a "
-                             f"direct detect of the same batches: {diffs}")
+                             f"detect of the image alone in slot 0: {diffs}; "
+                             f"canvas slots that differ: {slot_dependent}")
     if not calls < stats["requests"] == n_req:
         raise AssertionError(f"{name}: requests were not coalesced: {stats}")
     if calls < 1 or launches != want or variants != want_variants:
@@ -2128,14 +2162,9 @@ def served_json(model, rgb, infer_cfg, label_cfg, max_batch,
 
 
 def served_batch(rgb, max_batch, canvas_hw=KITTI_CANVAS):
-    """The server's device batch for ``rgb`` alone: the image in slot 0 of
-    a ``max_batch`` canvas batch, zeros elsewhere."""
-    import torch
-
-    x = np.zeros((max_batch,) + tuple(canvas_hw) + (3,), np.float32)
-    h, w = rgb.shape[:2]
-    x[0, :h, :w] = rgb.astype(np.float32) / 255.0
-    return torch.from_numpy(x)
+    """The server's device batch for the 8-bit ``rgb`` alone: the image in
+    slot 0 of a ``max_batch`` canvas batch, zeros elsewhere."""
+    return alone_batch(rgb.astype(np.float32) / 255.0, max_batch, canvas_hw)
 
 
 def front_end_json(dets):
@@ -3013,7 +3042,8 @@ def phase_export():
     counts = {}
     try:
         canvas = np.zeros((8, 480, 640, 3), np.float32)
-        for i, img in enumerate(request_images(8, (480, 640), seed=26)):
+        images = request_images(8, (480, 640), seed=26)
+        for i, img in enumerate(images):
             canvas[i, :img.shape[0], :img.shape[1]] = img
         x = torch.from_numpy(canvas).cuda()
         turbo_out = turbo_path = None
@@ -3066,6 +3096,11 @@ def phase_export():
             live_launches, live_variants = read_launches(), dict(
                 kq.variant_launches)
             equal = {k: bool(torch.equal(got[k], want[k])) for k in want}
+            # each slot of the artifact's batch as a server answers it: a
+            # live detect of its image alone in slot 0 of a zero batch
+            not_as_alone = [i for i, img in enumerate(images) if mismatch(
+                slot_detections(got, i), served_detections(
+                    model, img, infer, label, 8, (480, 640))) is not None]
             times = {"live": [], "artifact": []}
             for which in ("live", "artifact", "artifact", "live") * 3:
                 times[which] += event_seconds(
@@ -3077,6 +3112,7 @@ def phase_export():
                   "artifact_mb": os.path.getsize(path) / 1e6,
                   "graph_nodes": len(ep.graph.nodes),
                   "outputs_equal_live": equal,
+                  "slots_not_as_alone_in_slot_0": not_as_alone,
                   "detections": int(want["valid"].sum()),
                   "launches_artifact": art_launches,
                   "launches_live": live_launches,
@@ -3094,9 +3130,12 @@ def phase_export():
                              "window": 1 if cfg.num_landmarks else 0,
                              "rasterize_boxes": 0, "rasterize_landmarks": 0,
                              "ohem": 0}
-            if not all(equal.values()) or not want["valid"].any():
+            if not all(equal.values()) or not want["valid"].any() or \
+                    not_as_alone:
                 raise AssertionError(f"export {name}: the artifact differs "
-                                     f"from the live detect: {equal}")
+                                     f"from the live detect: {equal}, or "
+                                     f"its slots {not_as_alone} from a "
+                                     f"detect of their image alone")
             if art_launches != want_launches or live_launches != \
                     want_launches or art_variants != live_variants or (
                     quant and not all(v.startswith("mma")
@@ -3653,6 +3692,186 @@ def phase_certify() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- the port's bench and its serve load test (phase 29) -----------------
+
+# (run name, bench argv): the README's commands at the published presets
+# and batches (480 x 640): turbo int8 B=256, fast int8 B=128 on both int8
+# chains, paper bf16 B=64, the turbo landmark pipeline, and the canvas
+# train step at turbo's B=256 without and with landmarks
+BENCH_RUNS = [
+    ("turbo_int8", []),
+    ("fast_int8_fused", ["--preset", "fast"]),
+    ("fast_int8_hybrid", ["--preset", "fast", "--qbackend", "hybrid"]),
+    ("paper_bf16", ["--preset", "paper", "--dtype", "bfloat16"]),
+    ("turbo_int8_lm4", ["--landmarks", "4"]),
+    ("train_turbo", ["--mode", "train"]),
+    ("train_turbo_lm4", ["--mode", "train", "--landmarks", "4"]),
+]
+LOADTEST_ARGV = ["--turbo-int8", "--clients", "1", "8", "16", "32"]
+
+
+def run_main(main, argv):
+    """(stdout lines, stderr lines) of an entry point's ``main(argv)`` run
+    in this process; a failure exit raises with what it printed."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    except SystemExit as e:
+        rc = e.code
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}: {out.getvalue()[-2000:]}"
+                             f"{err.getvalue()[-2000:]}")
+    return out.getvalue().splitlines(), err.getvalue().splitlines()
+
+
+def bench_launches(argv, iters):
+    """The kernel launches one bench pass of ``iters`` calls or steps should
+    make: per detect call one NMS, one int8 conv per conv (and with the
+    hybrid chain one requant after each), one window gather with
+    landmarks; per train step one box rasterizer and one OHEM per
+    classification term (two with the refine branch). The bench's
+    synthetic canvases carry no landmarks, as the JAX bench's, so its
+    train step never rasterizes them."""
+    from densebox_tpu_torch import bench
+    from densebox_tpu_torch.models.quant import conv_shapes
+
+    args = bench.parse_args(argv)
+    cfg = bench.model_cfg(args, bench.run_shape(args)[2])
+    want = dict.fromkeys(("nms", "qconv", "requant", "window",
+                          "rasterize_boxes", "rasterize_landmarks", "ohem"),
+                         0)
+    if args.mode == "train":
+        want.update(rasterize_boxes=iters,
+                    ohem=iters * (2 if cfg.use_refine else 1))
+        return want
+    n_conv = len(conv_shapes(cfg)) if args.dtype == "int8" else 0
+    want.update(nms=iters, qconv=n_conv * iters,
+                requant=n_conv * iters if args.qbackend == "hybrid" else 0,
+                window=iters if cfg.num_landmarks else 0)
+    return want
+
+
+def phase_bench():
+    """Phase 29: ``python -m densebox_tpu_torch.bench`` in this process
+    through its ``main`` at the published presets and batches, one bench
+    call of turbo int8 at B=256 held to ``detect_batch`` of its batch, and
+    ``python -m densebox_tpu_torch.loadtest --turbo-int8`` at 1, 8, 16 and
+    32 clients with every answer held to a detect of its image alone.
+    Returns each run's kernel launches of one pass."""
+    import torch
+
+    from densebox_tpu_torch import bench, loadtest
+    from densebox_tpu_torch.serve import DetectServer
+
+    t_phase = time.perf_counter()
+    counts = {}
+    for name, argv in BENCH_RUNS:
+        torch.cuda.empty_cache()
+        out, err = run_main(bench.main, argv)
+        line, info = json.loads(out[-1]), json.loads(err[-1])
+        counts[f"bench_{name}"] = launches = info["launches_per_pass"]
+        want = bench_launches(argv, info["iters"])
+        emit({"phase": f"bench_{name}", "argv": " ".join(
+            ["python -m densebox_tpu_torch.bench"] + argv), "info": info,
+            "launches_expected": want})
+        emit(line)
+        finite = np.isfinite([line["value"], info.get(
+            "checksum", info.get("loss_total_sum"))]).all()
+        if (set(line) != {"metric", "value", "unit", "vs_baseline"}
+                or line["vs_baseline"] is not None or not line["value"] > 0
+                or not finite):
+            raise AssertionError(f"bench {name}: {line} {info}")
+        if launches != want:
+            raise AssertionError(f"bench {name}: launches of one pass "
+                                 f"{launches}, want {want}")
+
+    # one call of the headline run, recorded: its detections against a
+    # direct detect_batch of the same batch
+    calls = []
+    real = bench.detect_batch
+
+    def recorded(model, x, icfg, lcfg):
+        out = real(model, x, icfg, lcfg)
+        calls[:] = [(model, x.clone(), icfg, lcfg,
+                     {k: v.clone() for k, v in out.items()})]
+        return out
+
+    with mock.patch.object(bench, "detect_batch", recorded):
+        run_main(bench.main, ["--iters", "1", "--repeats", "1"])
+    model, x, icfg, lcfg, got = calls[0]
+    with torch.inference_mode():
+        want = bench.detect_batch(model, x, icfg, lcfg)
+    equal = {k: bool(torch.equal(got[k], want[k])) for k in want}
+    emit({"phase": "bench_call_vs_detect_batch", "batch": list(x.shape),
+          "detections": int(want["valid"].sum()), "outputs_equal": equal})
+    if not all(equal.values()):
+        raise AssertionError(f"a bench call differs from detect_batch of "
+                             f"its batch: {equal}")
+    del calls[:], model, x, got, want
+    torch.cuda.empty_cache()
+
+    # the load test: every answer against a detect of its image alone in
+    # slot 0 of a zero batch, through the server's own detect function
+    answers = []
+    submit = DetectServer.submit
+
+    def recorded_submit(self, img, timeout=60.0):
+        res = submit(self, img, timeout)
+        answers.append((self, img, res))
+        return res
+
+    reset_launches()
+    with mock.patch.object(DetectServer, "submit", recorded_submit):
+        out, _ = run_main(loadtest.main, LOADTEST_ARGV)
+    launches = read_launches()
+    levels = [json.loads(ln) for ln in out if ln.startswith("{")]
+    alone, differ = {}, 0
+    for server, img, res in answers:
+        key = img.tobytes()
+        if key not in alone:
+            batch = alone_batch(img, server.max_batch, server.canvas_hw)
+            alone[key] = slot_detections(server._detect(batch.cuda()), 0)
+        differ += mismatch(res, alone[key]) is not None
+    calls_all = sum(lv["device_calls"] for lv in levels)
+    # each fresh server's warm-up call is one device call more
+    want = {"nms": calls_all + len(levels), "qconv": 14 * (calls_all
+                                                           + len(levels))}
+    for lv in levels:
+        emit({"phase": "loadtest", **lv})
+    emit({"phase": "loadtest_check", "argv": " ".join(
+        ["python -m densebox_tpu_torch.loadtest"] + LOADTEST_ARGV),
+        "answers": len(answers), "distinct_images": len(alone),
+        "answers_not_as_alone_in_slot_0": differ, "launches": launches,
+        "launches_expected": want})
+    counts["loadtest"] = launches
+    # one closed-loop client has nothing to share a call with: every
+    # request is a device call of its own; more clients coalesce
+    if ([lv["clients"] for lv in levels] != [1, 8, 16, 32]
+            or any(lv["requests"] != 96 or not (
+                lv["device_calls"] < 96 if lv["clients"] > 1
+                else lv["device_calls"] == 96) for lv in levels)
+            or len(answers) != 96 * len(levels)):
+        raise AssertionError(f"load test: {levels}")
+    if differ:
+        raise AssertionError(f"load test: {differ} answers differ from a "
+                             f"detect of their image alone in slot 0")
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"load test launches {launches}, want {want}")
+    # every conv batch shape this process found slot-dependent (and ran
+    # one image a call), over all phases so far
+    from densebox_tpu_torch.models import densebox as mdb
+
+    emit({"phase": "slot_dependent_conv_shapes", "shapes": sorted(
+        f"{str(dtype).split('.')[-1]} {list(shape)} w{list(wshape)}"
+        for (_, dtype, shape, wshape, _), safe in mdb._slot_safe.items()
+        if not safe)})
+    emit({"phase": "bench_seconds", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def cv2_version():
     """cv2's version where it imports, else None."""
     try:
@@ -3739,6 +3958,7 @@ def main() -> int:
     multi.update(phase_export())
     phase_precision(bare_ms)
     phase_certify()
+    multi.update(phase_bench())
 
     # (name, source, TPU kernel it replaces, the main-path run its launch
     # count is read from, its counter)

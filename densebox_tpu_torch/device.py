@@ -51,6 +51,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def device_name(device: torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``) for a CUDA device,
+    else the device as written ("cpu"): what a measurement names as the
+    device it ran on."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
 def precision_flags() -> Dict[str, bool]:
     """The switches' values now, by name (``cudnn_tf32``, ``matmul_tf32``,
     ``bf16_reduction``)."""

@@ -21,6 +21,7 @@ the two views is a free ``permute``.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -139,6 +140,55 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     y = interp_bmm(aw, x.reshape(b * h, w, c))
     y = interp_bmm(ah, y.reshape(b, h, 2 * w * c))
     return y.reshape(b, 2 * h, 2 * w, c)
+
+
+# (device, dtype, shape, weight shape, padding) of a convolution's batch ->
+# whether cuDNN computes an image of it the same way in every slot
+_slot_safe: Dict[tuple, bool] = {}
+_slot_lock = threading.Lock()
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def slot_safe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              padding) -> bool:
+    """Whether ``F.conv2d`` of a batch shaped like ``x`` (shape, dtype,
+    device; the model's convs take channels_last batches) gives an image
+    the same bits in every slot of the batch: one seeded random image in
+    every slot must come out with every slot equal. Found once per shape
+    and kept, so that a trace for export finds what the live call before
+    it found. cuDNN's bfloat16 kernels on the H100 fail it for some shapes
+    (the 512-channel convs at 43 x 57 and 22 x 29 with B=8, pyramid levels
+    0.7071 and 0.3536 of a 480 x 640 canvas; at 60 x 80 with B=2 and B=64
+    but not B=8): an image's sums there run in an order that depends on its
+    slot, whatever the memory format, cuDNN's benchmark or deterministic
+    mode, or a zero column that makes the width even."""
+    key = (x.device, x.dtype, tuple(x.shape), tuple(w.shape), padding)
+    with _slot_lock:
+        if key not in _slot_safe:
+            gen = torch.Generator(device=x.device).manual_seed(0)
+            one = torch.randn((1,) + tuple(x.shape[1:]), generator=gen,
+                              device=x.device).to(x.dtype)
+            probe = torch.empty_like(x)
+            probe.copy_(one.expand_as(x))
+            y = _bits(F.conv2d(probe, w, b, padding=padding))
+            _slot_safe[key] = bool((y == y[:1]).all())
+        return _slot_safe[key]
+
+
+def split_by_image(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   padding) -> bool:
+    """Whether ``DenseBox._conv`` runs the batch ``x`` one image a call:
+    without autograd (detect, serve, export), on the card, where
+    ``slot_safe`` finds that cuDNN's batched call would compute an image
+    differently by its slot. A served image's result then does not depend
+    on which requests share its device call; training, the CPU and every
+    slot-safe shape keep the one batched call."""
+    return (x.is_cuda and x.shape[0] > 1 and not torch.is_grad_enabled()
+            and not slot_safe(x, w, b, padding))
 
 
 def check_divisible(cfg: ModelCfg, images: torch.Tensor) -> None:
@@ -270,9 +320,14 @@ class DenseBox(nn.Module):
         self.head_shards = None
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """``conv`` with its parameters cast to x's dtype."""
-        return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                        padding=conv.padding)
+        """``conv`` with its parameters cast to x's dtype: one batched
+        call, or one call an image where ``split_by_image`` says so."""
+        w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+        if split_by_image(x, w, b, conv.padding):
+            return torch.cat([F.conv2d(xi, w, b, padding=conv.padding)
+                              for xi in x.split(1)]).contiguous(
+                memory_format=torch.channels_last)
+        return F.conv2d(x, w, b, padding=conv.padding)
 
     def _heads(self, f3: torch.Tensor, up: torch.Tensor, train: bool,
                generator, dropout_keep) -> torch.Tensor:

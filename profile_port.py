@@ -66,10 +66,18 @@ Prints one JSON line per probe, after the card's name and power limit:
               package that has it, both maps in one launch and the landmark
               kernel against its blocks a patch. Uses only the wrappers, so
               the same script times an older tree of the package;
+  slot        for paper bf16, malf_bf16, paper f32 (kitti_vehicle()),
+              turbo_int8 and turbo_int8_lm4 at B=8, 480x640 (served
+              requests letterboxed): which operations make an image's
+              result depend on its slot in the batch, each alone on its
+              recorded input under every roll of the batch, with cuDNN's
+              convolutions in several bodies (``conv_variants``); the whole
+              forward and the served check for each body, and its device
+              call's time (``probe_slot``);
 ``--only`` takes a comma-separated subset of the groups serve (paper,
 turbo), int8 (turbo_int8, turbo_int8_hybrid), lm (malf_bf16,
 turbo_int8_lm4), train, fused_conv, resize, qconv, determinism, export,
-small_kernels; the default is all.
+small_kernels, slot; the default is all.
 Without a CUDA card it exits 1 and prints no result.
 """
 
@@ -87,9 +95,10 @@ from unittest import mock
 import numpy as np
 
 from chip_smoke import (QCONV_CASES, RASTER_CASES, TURBO_LAUNCHES,
-                        WINDOW_CASES, card_line, device_ms, emit, init_model,
-                        init_quant_model, label_rows, landmark_cells,
-                        median_ms, ohem_forward_case, qconv_inputs,
+                        WINDOW_CASES, card_line, device_ms, emit,
+                        event_seconds, init_model, init_quant_model,
+                        label_rows, landmark_cells, median_ms,
+                        ohem_forward_case, qconv_inputs, request_images,
                         serving_cells, train_cfgs, window_inputs,
                         with_live_threshold)
 
@@ -585,11 +594,257 @@ def probe_rasterizers():
     return res
 
 
+def bits(t):
+    """``t``'s bits as integers, for a bit-for-bit comparison."""
+    import torch
+
+    t = t.contiguous()
+    return t.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+def rolled(x, s: int):
+    """``x`` with its batch rolled by ``s`` slots (image i in slot
+    (i + s) % B), in x's memory format."""
+    import torch
+
+    out = torch.empty_like(x)
+    out.copy_(torch.roll(x, s, 0))
+    return out
+
+
+def slot_dependence(op, *xs):
+    """How ``op``'s output for each image of the batch ``xs`` depends on
+    the image's slot: ``op(*xs)`` runs with the batch rolled by every s (so
+    each image visits every slot, beside other neighbours), each output is
+    rolled back and compared with roll 0's bit for bit. Returns how many
+    (image, slot) pairs differ and how many elements, summed over the
+    values when ``op`` returns a dict."""
+    def outputs(s):
+        out = op(*(rolled(x, s) for x in xs))
+        out = out if isinstance(out, dict) else {"": out}
+        return {k: bits(rolled(v, -s)) for k, v in out.items()}
+
+    base = outputs(0)
+    n = xs[0].shape[0]
+    pairs, elems = 0, 0
+    for s in range(1, n):
+        differ = sum((v != base[k]).reshape(n, -1).sum(1)
+                     for k, v in outputs(s).items())
+        pairs += int((differ > 0).sum())
+        elems += int(differ.sum())
+    return {"pairs": pairs, "elements": elems}
+
+
+def conv_variants():
+    """Bodies of ``DenseBox._conv`` for the slot probe: as shipped (None),
+    the plain cuDNN call, and ways around a slot dependence of cuDNN's
+    kernels: an odd width (and height) padded by one zero column (row) and
+    cropped, each image alone where the width is odd, NCHW memory."""
+    import torch
+    import torch.nn.functional as F
+
+    def plain(self, conv, x):
+        return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                        padding=conv.padding)
+
+    def padded(pad_h):
+        def body(self, conv, x):
+            ph = x.shape[2] % 2 if pad_h else 0
+            pw = x.shape[3] % 2
+            if not (ph or pw):
+                return plain(self, conv, x)
+            xp = F.pad(x, (0, pw, 0, ph)).contiguous(
+                memory_format=torch.channels_last)
+            return plain(self, conv, xp)[:, :, :x.shape[2], :x.shape[3]]
+        return body
+
+    def split_odd(self, conv, x):
+        if x.shape[3] % 2 == 0:
+            return plain(self, conv, x)
+        return torch.cat([plain(self, conv, x[i:i + 1])
+                          for i in range(x.shape[0])])
+
+    def nchw(self, conv, x):
+        return plain(self, conv, x.contiguous())
+
+    return {"shipped": None, "plain": plain, "pad_odd_w": padded(False),
+            "pad_odd_hw": padded(True), "split_odd_w": split_odd,
+            "nchw": nchw}
+
+
+@contextlib.contextmanager
+def cudnn_mode(flag: str):
+    """cuDNN's ``benchmark`` or ``deterministic`` mode on, restored after."""
+    import torch
+
+    old = getattr(torch.backends.cudnn, flag)
+    setattr(torch.backends.cudnn, flag, True)
+    try:
+        yield
+    finally:
+        setattr(torch.backends.cudnn, flag, old)
+
+
+def probe_slot(name, model_cfg, infer_cfg, label_cfg, canvas, quant=None):
+    """Which operations of a device call make an image's result depend on
+    its slot in the batch. For each pyramid level, every operation of the
+    forward (the resize; each convolution in every body of
+    ``conv_variants`` and with cuDNN's benchmark or deterministic mode; the
+    max-pools; the x2 upsample; the fused head products) runs alone on its
+    recorded input under every roll of the batch (``slot_dependence``).
+    Then, for each body, the whole forward's maps under every roll, the
+    served check (each image's detections in its slot of the canvas batch
+    against a detect of it alone in slot 0 of a zero batch) and the device
+    call's time (CUDA events, 20 calls each in turns). An int8 model runs
+    only the whole-forward part, as shipped."""
+    import torch
+    import torch.nn.functional as F
+
+    from densebox_tpu_torch.device import reference_precision
+    from densebox_tpu_torch.infer import detect_batch, pyramid_shapes
+    from densebox_tpu_torch.infer.detector import pyramid_maps
+    from densebox_tpu_torch.infer.resize import resize_linear
+    from densebox_tpu_torch.models import densebox as mdb
+
+    x = canvas.cuda()
+    model = (init_quant_model(model_cfg, x, quant) if quant
+             else init_model(model_cfg, "cuda"))
+    infer_cfg = with_live_threshold(model, x, infer_cfg)
+    dtype = model_cfg.compute_dtype
+    variants = conv_variants()
+    plain = variants["plain"]
+    modules = dict(model.named_modules())
+    res = {"probe": "slot", "cell": name, "batch": list(x.shape),
+           "dtype": "int8" if quant else dtype, "levels": []}
+    with torch.inference_mode():
+        for hs, ws, _, _ in ([] if quant else
+                             pyramid_shapes(*x.shape[1:3], infer_cfg.scales)):
+            ops = {}
+            if (hs, ws) != tuple(x.shape[1:3]):
+                ops["resize"] = slot_dependence(
+                    lambda b: resize_linear(b, (hs, ws)), x)
+            taps = []
+            names = {id(m): n for n, m in modules.items()}
+            up_fn, pool_fn, heads = (mdb.upsample2x_align_corners,
+                                     F.max_pool2d, model._heads)
+
+            def rec_conv(conv, inp):
+                taps.append((names[id(conv)], (inp,)))
+                return plain(model, conv, inp)
+
+            def rec_up(inp):
+                taps.append(("upsample", (inp,)))
+                return up_fn(inp)
+
+            def rec_pool(inp, *a):
+                taps.append(("maxpool", (inp,)))
+                return pool_fn(inp, *a)
+
+            def rec_heads(f3, up, *a):
+                taps.append(("heads", (f3, up)))
+                return heads(f3, up, *a)
+
+            with mock.patch.object(model, "_conv", rec_conv), \
+                    mock.patch.object(model, "_heads", rec_heads), \
+                    mock.patch.object(mdb, "upsample2x_align_corners",
+                                      rec_up), \
+                    mock.patch.object(F, "max_pool2d", rec_pool):
+                model(resize_linear(x, (hs, ws)))
+            for tap, inp in taps:
+                key = f"{tap}@{list(inp[-1].shape[1:])}"
+                with reference_precision(dtype):
+                    if tap == "upsample":
+                        ops[key] = slot_dependence(up_fn, *inp)
+                    elif tap == "maxpool":
+                        ops[key] = slot_dependence(
+                            lambda b: pool_fn(b, 2, 2), *inp)
+                    elif tap == "heads":
+                        ops[key] = slot_dependence(
+                            lambda f, u: heads(f, u, False, None, None), *inp)
+                    else:
+                        conv = modules[tap]
+                        ops[key] = {
+                            v: slot_dependence(
+                                lambda b: body(model, conv, b), *inp)
+                            for v, body in variants.items() if body}
+                        for flag in ("benchmark", "deterministic"):
+                            with cudnn_mode(flag):
+                                ops[key][f"cudnn_{flag}"] = slot_dependence(
+                                    lambda b: plain(model, conv, b), *inp)
+            del taps
+            res["levels"].append({"hw": [hs, ws], "ops": ops})
+
+        def patched(vname):
+            body = variants[vname]
+            return (contextlib.nullcontext() if body is None else
+                    mock.patch.object(type(model), "_conv", body))
+
+        whole = {}
+        for vname in (["shipped"] if quant else variants):
+            with patched(vname):
+                maps = slot_dependence(
+                    lambda b: {f"{i}.{k}": v for i, (m, _) in enumerate(
+                        pyramid_maps(model, b, infer_cfg)) for k, v in
+                        m.items()}, x)
+                full = detect_batch(model, x, infer_cfg, label_cfg)
+                differ = []
+                for i in range(x.shape[0]):
+                    alone = torch.zeros_like(x)
+                    alone[0] = x[i]
+                    one = detect_batch(model, alone, infer_cfg, label_cfg)
+                    v = full["valid"][i]
+                    if not (torch.equal(v, one["valid"][0]) and all(
+                            torch.equal(full[k][i][v], one[k][0][v])
+                            for k in full if k != "valid")):
+                        differ.append(i)
+                whole[vname] = {"maps": maps, "detections": int(
+                    full["valid"].sum()), "images_not_as_alone": differ}
+        times = {k: [] for k in whole}
+        for _ in range(2):
+            for vname in list(whole) + list(whole)[::-1]:
+                with patched(vname):
+                    times[vname] += event_seconds(
+                        lambda: detect_batch(model, x, infer_cfg, label_cfg),
+                        5)
+        for vname in whole:
+            whole[vname]["device_call_ms"] = quartiles(
+                np.asarray(times[vname]) * 1e3)
+        res["whole"] = whole
+    return res
+
+
 # layers of the qconv probe that are also timed at B = 1 .. 32
 SCALED_LAYERS = ("turbo_conv1_2", "turbo_conv3_2", "turbo_conv4_2",
                  "turbo_head_conv1")
 GROUPS = ("serve", "int8", "lm", "train", "fused_conv", "resize", "qconv",
-          "determinism", "export", "small_kernels")
+          "determinism", "export", "small_kernels", "slot")
+
+
+def slot_cells():
+    """The cells of the ``slot`` probe as (name, model, infer and label
+    configs, int8 chain or None): paper bf16, malf_face() bf16, paper f32
+    (kitti_vehicle() at full width), turbo_int8 and turbo_int8_lm4."""
+    from densebox_tpu_torch import kitti_vehicle
+
+    (_, paper, p_infer, label), (_, turbo, t_infer, _) = serving_cells()
+    (malf, *malf_cfgs, _), (lm4, *lm4_cfgs, _) = landmark_cells()
+    return [("paper", paper, p_infer, label, None),
+            (malf, *malf_cfgs, None),
+            ("paper_f32", kitti_vehicle().model, p_infer, label, None),
+            ("turbo_int8", turbo, t_infer, label, "fused"),
+            (lm4, *lm4_cfgs, "fused")]
+
+
+def slot_canvas(canvas_hw=(480, 640), n=8):
+    """``n`` served requests' images (chip_smoke.py's), letterboxed into a
+    canvas batch."""
+    import torch
+
+    x = np.zeros((n,) + tuple(canvas_hw) + (3,), np.float32)
+    for i, img in enumerate(request_images(n, canvas_hw, seed=3)):
+        x[i, :img.shape[0], :img.shape[1]] = img
+    return torch.from_numpy(x)
 
 
 def main(argv=None) -> int:
@@ -656,6 +911,10 @@ def main(argv=None) -> int:
             emit(probe_export(name, *cfgs, host, args.calls, quant))
     if "small_kernels" in only:
         emit(probe_small_kernels())
+    if "slot" in only:
+        for cell in slot_cells():
+            emit(probe_slot(*cell[:4], slot_canvas(), quant=cell[4]))
+            torch.cuda.empty_cache()
     return 0
 
 

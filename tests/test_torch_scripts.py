@@ -66,6 +66,7 @@ import densebox_tpu_torch.parallel.spatial
 import densebox_tpu_torch.parallel.multihost, densebox_tpu_torch.entry
 import densebox_tpu_torch.export, densebox_tpu_torch.utils.constants
 import densebox_tpu_torch.certify, densebox_tpu_torch.device
+import densebox_tpu_torch.bench, densebox_tpu_torch.loadtest
 import chip_smoke, profile_port
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "jaxlib", "optax", "orbax", "tensorflow",
@@ -80,7 +81,8 @@ def test_port_loads_no_jax():
     trainer, the checkpoints, the logger, the command line, eval, the KITTI
     reader, the loader and its native core, the image decoder, the
     multi-device layer ``parallel/``, ``entry.py``, ``export.py``, the
-    certification ``certify.py`` and both scripts included) in a fresh
+    certification ``certify.py``, the bench ``bench.py``, the load test
+    ``loadtest.py`` and both scripts included) in a fresh
     interpreter loads no module of jax, flax,
     jaxlib, optax, orbax, tensorflow or the JAX package."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
@@ -99,7 +101,7 @@ def test_import_rule_covers_the_command_line_modules():
                  "utils/logging.py", "serve.py", "parallel/__init__.py",
                  "parallel/mesh.py", "parallel/spatial.py",
                  "parallel/multihost.py", "entry.py", "certify.py",
-                 "device.py"):
+                 "device.py", "bench.py", "loadtest.py"):
         assert os.path.join("densebox_tpu_torch", path) in PACKAGE, path
     assert "chip_smoke.py" in SCRIPTS
 
@@ -131,8 +133,9 @@ def test_only_the_precision_helper_sets_a_precision_switch(path):
 
 def test_chip_smoke_drives_the_precision_and_certify_phases():
     """``main`` runs phases 27 (precision, under torch's flags as it starts)
-    and 28 (the certification tool) after phase 26, checks the flags at
-    the end, and the docstring lists both phases."""
+    and 28 (the certification tool) after phase 26, then 29 (the bench and
+    the load test), checks the flags at the end, and the docstring lists
+    the three phases."""
     import chip_smoke
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
@@ -141,9 +144,11 @@ def test_chip_smoke_drives_the_precision_and_certify_phases():
     calls = sorted((n.lineno, n.col_offset, n.func.id) for n in ast.walk(main)
                    if isinstance(n, ast.Call) and isinstance(n.func, ast.Name))
     order = [name for _, _, name in calls if name.startswith("phase_")]
-    assert order[-3:] == ["phase_export", "phase_precision", "phase_certify"]
+    assert order[-4:] == ["phase_export", "phase_precision", "phase_certify",
+                          "phase_bench"]
     assert " 27. precision" in chip_smoke.__doc__
     assert " 28. certification" in chip_smoke.__doc__
+    assert " 29. the port's bench and load test" in chip_smoke.__doc__
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert '"precision_flags_at_end"' in src
     assert "densebox_tpu_torch.certify" in src
