@@ -13,8 +13,12 @@ not 0):
      with) from densebox_tpu_torch/csrc, one nvcc per source, all at once;
   4. NMS kernel against its plain PyTorch version on the card (B=8,
      K in {256, 512, 1024}, random boxes and IoU-on-threshold pairs: keep
-     masks, indices, boxes and scores identical), with median times, and
-     the latency of one step of its sweep from an all-kept input;
+     masks, indices, boxes and scores identical; then keep masks on every
+     set of ``nms_set`` at B=1 and 8 with K from 1 to 1024, and at B=256,
+     K=256 and B=64, K=512), with median times, and device times
+     (CUDA-graph replay, the graph's mask equal to the eager call's) at
+     the main path's shapes on a random, an all-kept and a chained set,
+     beside the bound and an empty launch of the same grid;
   5. the paper model (width 1.0) forward in f32 on the card against the
      port on the CPU (1e-3 absolute), then a bf16 forward;
   6. serve: a DetectServer with the paper model in bf16, 480x640 canvas,
@@ -34,7 +38,9 @@ not 0):
      of its own, the device time of every turbo layer (20 launches replayed
      as a CUDA graph between one pair of events) beside its bound and the
      same values through a bf16 ``F.conv2d``, and their sum over the 14
-     launches of a device call;
+     launches of a device call, and for the 1x1 layers whose widths
+     cuBLASLt takes, ``torch._int_mm`` of the same operands (the int32
+     accumulator only, no epilogue);
   9. requant kernel against its plain version (B=8, 120x160x64, int8 and
      f32 outputs): identical; median times; then, on a line of its own, its
      device time at the accumulator of every conv of a hybrid device call
@@ -369,7 +375,7 @@ def random_case(rng, b, k):
     return boxes, scores, valid
 
 
-def threshold_case(rng, b, k):
+def threshold_case(rng, b, k, integer_frac=0.5):
     """Pairs whose IoU is 0.5 in exact arithmetic: integer pairs where f32
     gives exactly 0.5 (kept), and float pairs shifted by a third of their
     width, which f32 rounds to either side of 0.5."""
@@ -378,7 +384,7 @@ def threshold_case(rng, b, k):
     y = rng.uniform(0, 400, (b, n)).astype(np.float32)
     w = rng.uniform(6, 90, (b, n)).astype(np.float32)
     h = rng.uniform(6, 90, (b, n)).astype(np.float32)
-    integer = rng.uniform(size=(b, n)) < 0.5
+    integer = rng.uniform(size=(b, n)) < integer_frac
     x, y, w, h = (np.where(integer, np.round(v), v) for v in (x, y, w, h))
     w = np.where(integer, 3 * np.maximum(np.round(w / 3), 1), w)
     a = np.stack([x, y, x + w, y + h], -1)
@@ -389,6 +395,39 @@ def threshold_case(rng, b, k):
         boxes = np.concatenate([boxes, np.zeros((b, k - 2 * n, 4))], 1)
     scores = np.linspace(1.0, 0.0, k, dtype=np.float32)[None].repeat(b, 0)
     return boxes.astype(np.float32), scores, np.ones((b, k), bool)
+
+
+NMS_SETS = ("random", "disjoint", "identical", "chain", "threshold",
+            "interleaved_invalid", "all_invalid")
+# (B, K) of the NMS calls timed: serving at B=8, the bench's turbo and paper
+NMS_SHAPES = ((8, 256), (8, 512), (8, 1024), (256, 256), (64, 512))
+
+
+def nms_set(name, b, k, seed=0):
+    """(boxes (B, K, 4) f32 in score order, valid (B, K) bool) of one of the
+    NMS kernel's test sets (``NMS_SETS``): ``random_case``; no two boxes
+    overlapping (all kept); one box K times (the first kept); a chain of
+    10-pixel boxes 2 pixels apart, each suppressing the next (IoU 2/3) and
+    not the one after (3/7), so every other box stays and the greedy order
+    is one chain K long; ``threshold_case`` (pairs at IoU 0.5); the chain
+    with every third box invalid; and every box invalid."""
+    rng = np.random.RandomState(seed)
+    if name in ("random", "all_invalid"):
+        boxes, _, valid = random_case(rng, b, k)
+        return boxes, valid & (name == "random")
+    if name == "threshold":
+        boxes, _, valid = threshold_case(rng, b, k)
+        return boxes, valid
+    n = np.arange(k, dtype=np.float32)
+    y = rng.randint(0, 400, (b, 1)).astype(np.float32) + 0 * n
+    step = {"disjoint": 4, "identical": 0}.get(name, 2)
+    x = rng.randint(0, 100, (b, 1)).astype(np.float32) + step * n
+    size = 2 if name == "disjoint" else 10
+    boxes = np.stack([x, y, x + size, y + size], -1).astype(np.float32)
+    valid = np.ones((b, k), bool)
+    if name == "interleaved_invalid":
+        valid[:, 1::3] = False
+    return boxes, valid
 
 
 def phase_nms():
@@ -432,6 +471,29 @@ def phase_nms():
             emit({"phase": "nms_kernel", "results": results})
             raise AssertionError(f"NMS kernel disagrees with its plain "
                                  f"version ({name}, K={k})")
+    # keep masks on every set of the schedule model
+    # (tests/test_torch_nms_schedule.py), at B=1 and 8, and at the bench's
+    # B=256, K=256 and B=64, K=512
+    shapes = [(b, k) for k in (1, 63, 64, 65, 97, 100, 256, 512, 1024)
+              for b in (1, 8)] + [(256, 256), (64, 512)]
+    bad = []
+    for name in NMS_SETS:
+        for b, k in shapes:
+            boxes, valid = nms_set(name, b, k, seed=k)
+            tb = torch.from_numpy(boxes).to(dev)
+            tv = torch.from_numpy(valid).to(dev)
+            n_diff = int((knms.greedy_keep(tb, tv, 0.5)
+                          != knms.greedy_keep_reference(tb, tv, 0.5)).sum())
+            if n_diff:
+                bad.append({"set": name, "B": b, "K": k,
+                            "keep_mismatches": n_diff})
+    results.append({"case": "sets", "sets": list(NMS_SETS),
+                    "shapes": shapes, "keep_mismatches": len(bad),
+                    "failed": bad})
+    if bad:
+        emit({"phase": "nms_kernel", "results": results})
+        raise AssertionError(f"NMS kernel disagrees with its plain version "
+                             f"on {len(bad)} set(s)")
     times = {}
     for k in (256, 512):
         boxes, scores, valid = random_case(rng, 8, k)
@@ -439,31 +501,45 @@ def phase_nms():
         sv = torch.from_numpy(valid).to(dev)
         times[k] = (median_ms(lambda: knms.greedy_keep(sb, sv, 0.5), 50),
                     median_ms(lambda: knms.greedy_keep_reference(sb, sv, 0.5), 7))
-    # The sweep is K steps, each waiting for the one before (a shuffle, a
-    # shared-memory load, an OR). Boxes that never overlap keep every step
-    # on that path; the device time's growth from K=512 to K=1024 over the
-    # 512 added steps is one step's latency (it still holds the growth of
-    # the mask pass and of the rows' copy, so it is an upper estimate).
-    chain = {}
-    for k in (512, 1024):
-        apart = torch.arange(k, device=dev, dtype=torch.float32) * 4
-        ab = torch.stack([apart, apart, apart + 2, apart + 2], -1)
-        ab = ab[None].repeat(8, 1, 1).contiguous()
-        av = torch.ones((8, k), dtype=torch.bool, device=dev)
-        if not bool(knms.greedy_keep(ab, av, 0.5).all()):
-            raise AssertionError("NMS kernel dropped a box of a disjoint set")
-        chain[k] = device_ms(lambda: knms.greedy_keep(ab, av, 0.5))
-    step_ms = (chain[1024] - chain[512]) / 512
+        if k == 512:
+            bound_512 = nms_bound(valid)
+    # device time by CUDA-graph replay (one launch a call, no other host
+    # call: the graph's mask must equal the eager call's), beside the bound
+    # and an empty launch of the same grid
+    dev_ms = {}
+    for b, k in NMS_SHAPES:
+        for name in ("random", "disjoint", "chain"):
+            boxes, valid = nms_set(name, b, k, seed=1)
+            tb = torch.from_numpy(boxes).to(dev)
+            tv = torch.from_numpy(valid).to(dev)
+            eager = knms.greedy_keep(tb, tv, 0.5)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = knms.greedy_keep(tb, tv, 0.5)
+            graph.replay()
+            if not torch.equal(captured, eager):
+                raise AssertionError(f"NMS kernel in a CUDA graph differs "
+                                     f"({name}, B={b}, K={k})")
+            dev_ms[f"{name}_B{b}_K{k}"] = {
+                "device_ms": device_ms(lambda: knms.greedy_keep(tb, tv, 0.5)),
+                "kept": int(eager.sum()), "bound_ms": nms_bound(valid)[0]}
+        cluster, threads = knms.launch_shape(b, k)
+        dev_ms[f"floor_B{b}_K{k}"] = empty_launch_ms(cluster, b, threads)
     emit({"phase": "nms_kernel", "results": results, "max_abs_err": err,
           "median_ms": {f"B8_K{k}": {"kernel": t[0], "plain": t[1]}
                         for k, t in times.items()},
-          "all_kept_device_ms": {f"B8_K{k}": t for k, t in chain.items()},
-          "sweep_step_us": step_ms * 1e3,
-          "chain_bound_ms_B8_K512": 512 * step_ms})
-    # B=8, K=512: boxes and flags in, keep mask out; 16 float operations
-    # for each of the K(K-1)/2 pairs' IoU test
-    return err, times[512], bound(8 * 512 * (16 + 1 + 1),
-                                  8 * 512 * 511 / 2 * 16)
+          "device": dev_ms, "bound_by": "operations"})
+    return err, times[512], bound_512, None, {
+        "floor_ms": dev_ms["floor_B8_K512"]}
+
+
+def nms_bound(valid):
+    """(bound_ms, bound_by) of one ``greedy_keep`` call: boxes and flags in,
+    the keep mask out, and 16 float operations for the IoU test of each pair
+    of valid boxes (the kernel tests no other pair)."""
+    b, k = valid.shape
+    n = valid.sum(1).astype(np.float64)
+    return bound(b * k * (16 + 1 + 1), float((n * (n - 1) / 2).sum()) * 16)
 
 
 def float_state(cfg, seed=0, loc_bias=0.0):
@@ -668,6 +744,8 @@ def phase_qconv():
             "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_bf16_conv_ms": conv_library_ms(args),
             "launches_per_call": TURBO_LAUNCHES[name]}
+        if k == 1 and cin % 8 == 0 and cout % 8 == 0:
+            layers[name].update(int_mm_library(args))
         if name == "turbo_conv3_2":
             # the row of the kernels line: the kernel's and the library
             # call's device time, the plain version's event time
@@ -680,10 +758,17 @@ def phase_qconv():
     per_call = {key: sum(v[key] * v["launches_per_call"]
                          for v in layers.values())
                 for key in ("kernel_ms", "bound_ms", "library_bf16_conv_ms")}
+    mm = {n: v for n, v in layers.items() if "library_int_mm_ms" in v}
+    per_call["int_mm_layers"] = {
+        key: sum(v[key] * v["launches_per_call"] for v in mm.values())
+        for key in ("kernel_ms", "library_int_mm_ms")}
     emit({"phase": "qconv_turbo_layers", "batch": 8,
           "timing": "device time: 20 launches replayed as a CUDA graph "
                     "between one pair of events, median of 5",
           "layers": layers, "per_device_call_14_launches": per_call})
+    if not all(v["int_mm_equal"] for v in mm.values()):
+        raise AssertionError("torch._int_mm's accumulator differs from the "
+                             "plain one")
     return (max(err, row2[0]),) + row2[1:]
 
 
@@ -3896,6 +3981,23 @@ def conv_library_ms(args) -> float:
     return device_ms(lambda: F.conv2d(xb, wb, padding=pad))
 
 
+def int_mm_library(args) -> dict:
+    """One PyTorch call for a 1x1 int8 layer's int32 accumulator, as the
+    kernel's yardstick: ``torch._int_mm`` (cuBLASLt) of the activations
+    (B*H*W, Cin) and the weights (Cin, Cout), without the epilogue; its
+    device time, read as the kernel's is, and whether it equals the exact
+    product."""
+    import torch
+
+    x, wq = args[:2]
+    a = x.reshape(-1, x.shape[-1])
+    w = wq.reshape(wq.shape[0], -1).t()       # (Cin, Cout), column-major
+    exact = (a.double() @ w.double()).to(torch.int32)   # |sum| < 2**53
+    return {"library_int_mm_ms": device_ms(lambda: torch._int_mm(a, w)),
+            "int_mm_equal": bool(torch.equal(torch._int_mm(a, w), exact)),
+            "library_int_mm": "accumulator only, no epilogue"}
+
+
 def main() -> int:
     import torch
 
@@ -3922,7 +4024,7 @@ def main() -> int:
     # kernel name -> (max_abs_err, (ms, plain_ms), bound, library_ms, further
     # keys of its entry in the kernels line)
     rows = {}
-    rows["nms"] = phase_nms() + (None, {})
+    rows["nms"] = phase_nms()
     phase_forward()
 
     launches = {name: phase_serve(f"serve_{name}_bf16", *cfgs)

@@ -61,14 +61,40 @@ def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+def launch_shape(b: int, k: int) -> tuple[int, int]:
+    """(cluster, threads) of csrc/nms.cu's launch: CTAs an image, doubled
+    up to 8 while each takes at least 64 boxes and the grid stays within
+    two CTAs per SM of the H100 (2 x 132); 1024 threads a CTA where the
+    grid fits the card once (one CTA an SM: more warps for the IoU tests),
+    else 512 (two an SM)."""
+    words = -(-k // 64)
+    c = 1
+    while c < 8 and 2 * c <= words and 2 * c * b <= 264:
+        c *= 2
+    return c, 1024 if b * c <= 132 else 512
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     """``densebox_nms_keep`` of csrc/nms.cu, built and loaded on first use."""
     fn = build.load("nms").densebox_nms_keep
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _set_up(device_index: int) -> None:
+    """Raise the kernel's shared-memory limit on one device, once, so that a
+    call is one launch and no other host call."""
+    setup = build.load("nms").densebox_nms_setup
+    setup.restype = ctypes.c_int
+    with torch.cuda.device(device_index):
+        rc = setup()
+    if rc != 0:
+        raise RuntimeError(f"greedy_keep: setting the NMS kernel's shared "
+                           f"memory failed with CUDA error {rc}")
 
 
 @torch.library.custom_op(
@@ -101,14 +127,12 @@ def _greedy_keep_cuda(boxes, valid, iou_thresh):
     if not 1 <= k <= MAX_K or not 1 <= b <= 65535:
         raise ValueError(f"greedy_keep: want 1 <= K <= {MAX_K} and "
                          f"1 <= B <= 65535, got B={b} K={k}")
-    words = (k + 63) // 64
+    _set_up(boxes.device.index)
     with torch.cuda.device(boxes.device):
-        mask = torch.empty((b, k, words), dtype=torch.int64,
-                           device=boxes.device)      # u64 bit rows, scratch
         keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
         rc = _launcher()(
-            boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
-            keep.data_ptr(), b, k, float(iou_thresh),
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+            *launch_shape(b, k), float(iou_thresh),
             torch.cuda.current_stream(boxes.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"greedy_keep: NMS kernel launch failed with "

@@ -74,10 +74,18 @@ Prints one JSON line per probe, after the card's name and power limit:
               convolutions in several bodies (``conv_variants``); the whole
               forward and the served check for each body, and its device
               call's time (``probe_slot``);
+  nms         the greedy-NMS kernel alone by device time (CUDA-graph
+              replay) at B=8 with K=256, 512 and 1024, B=256 with K=256 and
+              B=64 with K=512, on a random, an all-kept and a chained set,
+              each mask checked against the plain version, beside its
+              bound; and the host's time of a call (wrapper, dispatch,
+              launch; 100 enqueued without a synchronisation). Uses only
+              ``greedy_keep``, so the same script times an
+              older tree of the package;
 ``--only`` takes a comma-separated subset of the groups serve (paper,
 turbo), int8 (turbo_int8, turbo_int8_hybrid), lm (malf_bf16,
 turbo_int8_lm4), train, fused_conv, resize, qconv, determinism, export,
-small_kernels, slot; the default is all.
+small_kernels, slot, nms; the default is all.
 Without a CUDA card it exits 1 and prints no result.
 """
 
@@ -94,13 +102,13 @@ from unittest import mock
 
 import numpy as np
 
-from chip_smoke import (QCONV_CASES, RASTER_CASES, TURBO_LAUNCHES,
-                        WINDOW_CASES, card_line, device_ms, emit,
-                        event_seconds, init_model, init_quant_model,
-                        label_rows, landmark_cells, median_ms,
-                        ohem_forward_case, qconv_inputs, request_images,
-                        serving_cells, train_cfgs, window_inputs,
-                        with_live_threshold)
+from chip_smoke import (NMS_SHAPES, QCONV_CASES, RASTER_CASES,
+                        TURBO_LAUNCHES, WINDOW_CASES, card_line, device_ms,
+                        emit, event_seconds, init_model, init_quant_model,
+                        label_rows, landmark_cells, median_ms, nms_bound,
+                        nms_set, ohem_forward_case, qconv_inputs,
+                        request_images, serving_cells, train_cfgs,
+                        window_inputs, with_live_threshold)
 
 CANVAS = (8, 480, 640, 3)
 
@@ -109,7 +117,7 @@ def kernel_kind(name: str) -> str:
     """Bucket of a CUDA kernel (or copy) by its name in the trace."""
     n = name.lower()
     for kind, keys in (
-            ("nms_kernel", ("iou_mask", "sweep_kernel")),
+            ("nms_kernel", ("nms_kernel",)),
             ("int8_conv_kernel", ("qconv_kernel", "qconv_mma_kernel",
                                   "qconv_dp4a_kernel")),
             ("requant_kernel", ("requant_kernel",)),
@@ -515,6 +523,45 @@ def probe_determinism(name, cfg, canvas):
     return res
 
 
+def probe_nms():
+    """The greedy-NMS kernel alone at the main path's shapes
+    (``NMS_SHAPES``) on three of chip_smoke.py's sets: random, all kept
+    (disjoint) and one chain of suppressions K long; each mask held to the
+    plain version, beside the bound. Uses only ``greedy_keep``, so the same
+    script times an older tree of the package."""
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import nms as knms
+
+    res = {"probe": "nms", "timing": "device time: 20 launches replayed as "
+           "a CUDA graph between one pair of events, median of 5; two "
+           "readings"}
+    for b, k in NMS_SHAPES:
+        for name in ("random", "disjoint", "chain"):
+            boxes, valid = nms_set(name, b, k, seed=1)
+            tb = torch.from_numpy(boxes).cuda()
+            tv = torch.from_numpy(valid).cuda()
+            res[f"{name}_B{b}_K{k}"] = {
+                "equal": bool(torch.equal(
+                    knms.greedy_keep(tb, tv, 0.5),
+                    knms.greedy_keep_reference(tb, tv, 0.5))),
+                "device_ms": [device_ms(lambda: knms.greedy_keep(tb, tv, 0.5))
+                              for _ in range(2)],
+                "bound_ms": nms_bound(valid)[0]}
+        # the host's side of a call: wrapper, custom-op dispatch and launch,
+        # enqueued 100 at a time without a synchronisation between them
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                knms.greedy_keep(tb, tv, 0.5)
+            host.append((time.perf_counter() - t0) / 100 * 1e6)
+        torch.cuda.synchronize()
+        res[f"host_us_B{b}_K{k}"] = float(np.median(host))
+    return res
+
+
 def probe_small_kernels():
     """Device time of the OHEM and window-gather kernels at the main path's
     shapes, through their wrappers alone."""
@@ -818,7 +865,7 @@ def probe_slot(name, model_cfg, infer_cfg, label_cfg, canvas, quant=None):
 SCALED_LAYERS = ("turbo_conv1_2", "turbo_conv3_2", "turbo_conv4_2",
                  "turbo_head_conv1")
 GROUPS = ("serve", "int8", "lm", "train", "fused_conv", "resize", "qconv",
-          "determinism", "export", "small_kernels", "slot")
+          "determinism", "export", "small_kernels", "slot", "nms")
 
 
 def slot_cells():
@@ -911,6 +958,8 @@ def main(argv=None) -> int:
             emit(probe_export(name, *cfgs, host, args.calls, quant))
     if "small_kernels" in only:
         emit(probe_small_kernels())
+    if "nms" in only:
+        emit(probe_nms())
     if "slot" in only:
         for cell in slot_cells():
             emit(probe_slot(*cell[:4], slot_canvas(), quant=cell[4]))

@@ -95,6 +95,39 @@ def test_detect_batch_matches_jax(models, scales):
     _assert_detections_match(got, want)
 
 
+@pytest.mark.parametrize("scales", [(1.0,), PYRAMID], ids=["1scale", "4scale"])
+def test_approx_topk_matches_jax(models, scales):
+    """``approx_topk``: the JAX detect takes ``lax.approx_max_k`` (each
+    level here has more positions than ``topk_per_scale``: 24 x 32 = 768 at
+    scale 1), which off the TPU returns exactly ``lax.top_k``'s values and
+    indices; the port reads the flag and takes the exact top-k. The JAX
+    detections with the flag equal those without it bit for bit, and the
+    port's equal them as in test_detect_batch_matches_jax."""
+    jmodel, params, port = models
+    infer = _infer_cfg(scales, approx_topk=True)
+    img = _images(3)
+    approx = []
+    real = jax.lax.approx_max_k
+
+    def spy(operand, k, **kw):
+        approx.append((operand.shape, k))
+        return real(operand, k, **kw)
+
+    with mock.patch.object(jax.lax, "approx_max_k", spy):
+        want = jax_detector.make_detect_fn(jmodel, infer, LABEL)(
+            params, jnp.asarray(img))
+    assert approx and all(k == 64 < n for (n,), k in approx)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    exact = jax_detector.make_detect_fn(jmodel, _infer_cfg(scales), LABEL)(
+        params, jnp.asarray(img))
+    for key, v in exact.items():
+        np.testing.assert_array_equal(want[key], np.asarray(v), err_msg=key)
+    got = {k: v.numpy() for k, v in
+           make_detect_fn(port, infer, LABEL)(torch.from_numpy(img)).items()}
+    assert want["valid"].sum() > 10
+    _assert_detections_match(got, want)
+
+
 def test_server_submit_matches_jax(models):
     """A request smaller than the canvas is letterboxed (zero pad, no
     rescale) and comes back as JAX's detect of that canvas."""

@@ -12,6 +12,8 @@ here are shared with test_torch_decode_nms.py.
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +28,11 @@ from densebox_tpu_torch.ops.kernels import qconv as kqconv
 from densebox_tpu_torch.ops.kernels import requant as krequant
 from densebox_tpu_torch.ops.kernels import window as kwindow
 from densebox_tpu_torch.ops.nms import nms
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+from chip_smoke import NMS_SETS, nms_set  # noqa: E402
 
 
 def random_boxes(seed, b, k):
@@ -77,6 +84,41 @@ def test_kernel_matches_plain_version(cuda, k):
     assert knms.launches == before + 1
     want = knms.greedy_keep_reference(tb, tv, 0.5)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NMS_SETS)
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 97, 100, 256, 512, 1024])
+def test_kernel_sets_match_plain_version(cuda, name, k):
+    """The schedule model's sets (tests/test_torch_nms_schedule.py) at B=1
+    and B=8, and at B=256 with K=256 (the turbo bench's call): one launch,
+    keep masks equal bit for bit."""
+    for b in (1, 8) + ((256,) if k == 256 else ()):
+        boxes, valid = nms_set(name, b, k, seed=k)
+        tb = torch.from_numpy(boxes).to(cuda)
+        tv = torch.from_numpy(valid).to(cuda)
+        before = knms.launches
+        got = knms.greedy_keep(tb, tv, 0.5)
+        torch.cuda.synchronize()
+        assert knms.launches == before + 1
+        assert torch.equal(got, knms.greedy_keep_reference(tb, tv, 0.5)), b
+
+
+@pytest.mark.gpu
+def test_kernel_in_a_cuda_graph(cuda):
+    """One call is one launch and no other host call: a CUDA graph holds it,
+    and its replay gives the eager call's mask."""
+    boxes, valid = nms_set("random", 8, 512)
+    tb, tv = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    eager = knms.greedy_keep(tb, tv, 0.5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = knms.greedy_keep(tb, tv, 0.5)
+    before = knms.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert knms.launches == before      # a replay goes past the wrapper
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.gpu

@@ -195,9 +195,10 @@ def test_resize_products_equal_resize_linear():
 
 
 @pytest.mark.parametrize("name,kind", [
-    ("iou_mask_kernel(float4 const*, int, int, float)", "nms_kernel"),
-    ("sweep_kernel(unsigned long long const*, unsigned char const*)",
-     "nms_kernel"),
+    ("void (anonymous namespace)::nms_kernel(float4 const*, unsigned char "
+     "const*, int, int, float, unsigned char*)", "nms_kernel"),
+    ("nms_kernel(float4 const*, unsigned char const*, int, int, float, "
+     "unsigned char*)", "nms_kernel"),
     ("void (anonymous namespace)::qconv_kernel<3, 64>(signed char const*, "
      "signed char const*, float const*)", "int8_conv_kernel"),
     ("void (anonymous namespace)::requant_kernel<int>(int const*, float "
