@@ -8,11 +8,37 @@ Same contract as the JAX server:
   * the first queued request opens a ``batch_window_ms`` window, and every
     request arriving inside it rides the same device call;
   * results come back in each request's own image coordinates (boxes,
-    scores and, for a landmark model, lm_points and lm_valid);
-  * ``stats`` counts requests and device calls.
+    scores and, for a landmark model, lm_points and lm_valid).
 
 The batch is assembled in one pinned host buffer and copied to the model's
 device without blocking.
+
+Observability. The worker thread times each stage of a device call and of
+each request it served, as a span in ``utils/logging.py``'s ring
+(``spans_between``; clock ``time.time_ns()``, the profiler's) and as a sum
+in ``stats``, a dict of flat numbers (seconds summed over calls):
+
+  * ``serve.idle`` (``idle_s``): the worker waits on an empty queue, until
+    an item arrives;
+  * ``serve.window`` (``window_s``): first item taken to batch closed, full
+    (``closed_full``) or at the window's end (``closed_deadline``);
+  * ``serve.fill`` (``fill_s``): the pinned buffer written (the short
+    batch's ``padded_slots`` zeroed) and its copy to the device issued;
+  * ``serve.detect`` (``detect_s``): the detect function's call, host side;
+  * ``serve.fetch`` (``fetch_s``): the outputs copied back, which waits for
+    the card;
+  * ``serve.scatter`` (``scatter_s``): results sliced per request, to the
+    last answer handed out;
+  * per request, ``serve.letterbox`` (``letterbox_s``): its letterbox in
+    ``submit``, and ``serve.queue`` (``queue_wait_s``): enqueued to taken
+    into a batch.
+
+``requests`` and ``device_calls`` count the requests served and the
+device calls made. A call's spans carry its id; a request's carry its own
+id and name the call as ``parent``. Only the worker writes spans and
+``stats`` (a request's own times ride in its queue item); the
+constructor's warm-up call is neither counted nor spanned. GET /healthz
+shows ``stats`` whole.
 
 ``DetectServer.from_exported`` serves an artifact of ``export.py`` (``cli
 serve --artifact``). ``make_http_server`` puts the JAX package's stdlib HTTP
@@ -36,10 +62,18 @@ import torch
 from densebox_tpu_torch.data.imageio import imdecode, resize_area
 from densebox_tpu_torch.device import resolve_device
 from densebox_tpu_torch.infer.detector import make_detect_fn
+from densebox_tpu_torch.utils.logging import new_span_id, record_span
 
 # /detect body cap: an encoded image tops out in the low MBs; a larger body
 # is a client bug or abuse and is refused with 413 before it is read
 MAX_BODY_BYTES = 32 * 1024 * 1024
+
+# each span's sum in ``DetectServer.stats``
+SPAN_SECONDS = {"serve.idle": "idle_s", "serve.window": "window_s",
+                "serve.fill": "fill_s", "serve.detect": "detect_s",
+                "serve.fetch": "fetch_s", "serve.scatter": "scatter_s",
+                "serve.letterbox": "letterbox_s",
+                "serve.queue": "queue_wait_s"}
 
 
 class DetectServer:
@@ -91,8 +125,11 @@ class DetectServer:
         self.canvas_hw = canvas_hw
         self.max_batch = max_batch
         self.window_s = batch_window_ms / 1e3
-        # observability: device_calls vs requests is the coalescing ratio
-        self.stats = {"requests": 0, "device_calls": 0}
+        # observability: device_calls vs requests is the coalescing ratio;
+        # the rest say where a call's time went (module docstring)
+        self.stats = {"requests": 0, "device_calls": 0, "closed_full": 0,
+                      "closed_deadline": 0, "padded_slots": 0,
+                      **{k: 0.0 for k in SPAN_SECONDS.values()}}
         self._detect = detect_fn
         hc, wc = canvas_hw
         self._host = torch.zeros((max_batch, hc, wc, 3), dtype=torch.float32,
@@ -124,10 +161,12 @@ class DetectServer:
         Returns numpy detections in the image's own coordinates."""
         if self._stop.is_set():
             raise RuntimeError("server closed")
+        t0 = time.time_ns()
         canvas, f = self._letterbox(image_rgb_f32)
+        t1 = time.time_ns()
         done = threading.Event()
         slot: Dict[str, np.ndarray] = {}
-        self._q.put((canvas, f, done, slot))
+        self._q.put((canvas, f, done, slot, (t0, t1, time.time_ns())))
         if self._stop.is_set() and not done.wait(0.05):
             # raced with close(): the item may sit behind the close-side
             # drain with no worker left to consume it
@@ -150,17 +189,18 @@ class DetectServer:
             except queue.Empty:
                 break
             if item is not None:
-                _, _, done, slot = item
+                _, _, done, slot, _ = item
                 slot["error"] = "server closed"
                 done.set()
 
     # -- device loop -------------------------------------------------------
 
-    def _collect(self) -> List[tuple]:
+    def _collect(self) -> Tuple[List[tuple], List[int]]:
+        """A batch of queue items and the time each was taken (ns)."""
         first = self._q.get()
         if first is None:
-            return []
-        batch = [first]
+            return [], []
+        batch, taken = [first], [time.time_ns()]
         deadline = time.monotonic() + self.window_s
         while len(batch) < self.max_batch:
             left = deadline - time.monotonic()
@@ -173,26 +213,53 @@ class DetectServer:
             if item is None:
                 break
             batch.append(item)
-        return batch
+            taken.append(time.time_ns())
+        return batch, taken
+
+    def _span(self, name: str, t0: int, t1: int, id: int,
+              parent: Optional[int] = None) -> None:
+        record_span(name, t0, t1, id, parent)
+        self.stats[SPAN_SECONDS[name]] += (t1 - t0) / 1e9
 
     def _run(self) -> None:
         host = self._host.numpy()
+        stats = self.stats
         while not self._stop.is_set():
-            batch = self._collect()
+            t_wait = time.time_ns()
+            batch, taken = self._collect()
             if not batch:
                 continue
+            t_closed = time.time_ns()
+            call = new_span_id()
+            n = len(batch)
+            self._span("serve.idle", t_wait, taken[0], call)
+            self._span("serve.window", taken[0], t_closed, call)
+            stats["closed_full" if n == self.max_batch
+                  else "closed_deadline"] += 1
+            stats["padded_slots"] += self.max_batch - n
+            stats["requests"] += n
+            stats["device_calls"] += 1
+            for (_, _, _, _, (lb0, lb1, put)), t in zip(batch, taken):
+                req = new_span_id()
+                self._span("serve.letterbox", lb0, lb1, req, call)
+                self._span("serve.queue", put, t, req, call)
             try:
                 # the previous call's results were copied back before this
                 # point, so its host-to-device copy of the buffer is done
-                for i, (canvas, _, _, _) in enumerate(batch):
+                t0 = time.time_ns()
+                for i, (canvas, _, _, _, _) in enumerate(batch):
                     host[i] = canvas
-                host[len(batch):] = 0.0
-                self.stats["requests"] += len(batch)
-                self.stats["device_calls"] += 1
-                out = self._detect(self._host.to(self.device,
-                                                 non_blocking=True))
+                host[n:] = 0.0
+                images = self._host.to(self.device, non_blocking=True)
+                t1 = time.time_ns()
+                self._span("serve.fill", t0, t1, call)
+                out = self._detect(images)
+                t2 = time.time_ns()
+                self._span("serve.detect", t1, t2, call)
                 out = {k: v.cpu().numpy() for k, v in out.items()}
-                for i, (_, f, done, slot) in enumerate(batch):
+                t3 = time.time_ns()
+                self._span("serve.fetch", t2, t3, call)
+                for i, (_, f, done, slot, _) in enumerate(batch):
                     v = out["valid"][i]
                     slot["boxes"] = out["boxes"][i][v] / f
                     slot["scores"] = out["scores"][i][v]
@@ -200,8 +267,9 @@ class DetectServer:
                         slot["lm_points"] = out["lm_points"][i][v] / f
                         slot["lm_valid"] = out["lm_valid"][i][v]
                     done.set()
+                self._span("serve.scatter", t3, time.time_ns(), call)
             except Exception as e:  # noqa: BLE001 - relayed per request
-                for _, _, done, slot in batch:
+                for _, _, done, slot, _ in batch:
                     slot["error"] = f"{type(e).__name__}: {e}"
                     done.set()
 

@@ -8,14 +8,28 @@ then, and ``tensorflow`` never is). ``maybe_profile`` traces a window with
 turns on autograd's anomaly detection (a backward that produces NaN raises
 and names the forward op), the counterparts of jax's profiler trace and its
 NaN-check flag.
+
+Spans: ``record_span`` keeps ``(name, start_ns, end_ns, id, parent)`` in one
+process-wide ring of the last ``SPAN_RING`` spans, always on (two clock
+reads and a locked append a span: no exporter, no file, no switch).
+``spans_between`` reads the spans that overlap a window and
+``spans_dropped`` says whether the ring lost any. The clock is
+``time.time_ns()``, which is also ``torch.profiler``'s host clock (Unix
+epoch ns), so a span lines up with a profiler trace as it is. Spans take
+no ``torch.profiler`` annotation: on CUDA every ``record_function`` range
+gets a device-side twin that a trace counts as device work, and the
+profiler sees only the thread that started it.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -80,6 +94,50 @@ def maybe_profile(logdir: Optional[str]):
     path = os.path.join(logdir, f"trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)
     print(f"wrote profiler trace {path}", flush=True)
+
+
+SPAN_RING = 65536          # a 51-s window of the malf serve cell: ~15k spans
+
+Span = Tuple[str, int, int, Optional[int], Optional[int]]
+_RING: "collections.deque[Span]" = collections.deque(maxlen=SPAN_RING)
+_DROPPED = [0, 0]          # spans pushed out, the latest end_ns among them
+_LOCK = threading.Lock()   # the drop count is a check-then-act on the ring
+_IDS = itertools.count(1)
+
+
+def new_span_id() -> int:
+    """A process-wide unique span id (safe from any thread)."""
+    return next(_IDS)
+
+
+def record_span(name: str, start_ns: int, end_ns: int,
+                id: Optional[int] = None, parent: Optional[int] = None
+                ) -> None:
+    """Keep one span, its times from ``time.time_ns()``. ``id`` ties the
+    spans of one unit of work (a request, a device call) together and
+    ``parent`` names the id it ran under. When the ring is full its oldest
+    span is pushed out and counted. Safe from any thread."""
+    with _LOCK:
+        if len(_RING) == _RING.maxlen:
+            _DROPPED[0] += 1
+            _DROPPED[1] = max(_DROPPED[1], _RING[0][2])
+        _RING.append((name, start_ns, end_ns, id, parent))
+
+
+def spans_between(lo_ns: int, hi_ns: int) -> List[Span]:
+    """The ring's spans that overlap ``[lo_ns, hi_ns]``, oldest first."""
+    with _LOCK:
+        ring = _RING.copy()
+    return [s for s in ring if s[2] >= lo_ns and s[1] <= hi_ns]
+
+
+def spans_dropped(after_ns: Optional[int] = None) -> int:
+    """How many spans the full ring has pushed out. With ``after_ns``, 0
+    unless one of them ended after it: a window that starts at
+    ``after_ns`` then still has all of its spans."""
+    with _LOCK:
+        n, last_end = _DROPPED
+    return n if after_ns is None or last_end > after_ns else 0
 
 
 def enable_debug_checks() -> None:

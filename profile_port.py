@@ -13,9 +13,8 @@ Prints one JSON line per probe, after the card's name and power limit:
               (pinned host batch -> detect -> results on the host) on the
               host clock around a synchronised call (median, q1, q3 of
               20), then a
-              torch.profiler trace of --calls calls: kernel time by kind,
-              the top kernels, and the device's idle share (1 - kernel time
-              / wall time of the traced calls);
+              torch.profiler trace of --calls calls: kernel time by kind
+              and the top kernels;
   train       for the two train cells (chip_smoke.py's phases 20 and 21:
               train_paper = kitti_vehicle(), train_malf = malf_face() through
               the canvas step; full width, f32 with TF32 off, B=32, 240 px
@@ -23,8 +22,8 @@ Prints one JSON line per probe, after the card's name and power limit:
               host clock around a synchronised step (median, q1, q3 of 10),
               then a trace of --calls steps: kernel time by kind (forward
               and backward convolutions, GEMMs, elementwise, the rasterizer
-              and OHEM kernels, the optimizer's foreach kernels) and the
-              idle share; the same two cells again with compute_dtype
+              and OHEM kernels, the optimizer's foreach kernels); the same
+              two cells again with compute_dtype
               bfloat16 (float32 parameters cast at use);
   fused_conv  the paper model's conv1_2 at B=8, 480x640, bf16: nn.Conv2d
               and ReLU as the model runs them, against cuDNN's fused
@@ -172,8 +171,7 @@ def host_ms(fn, reps: int):
 
 def trace_calls(call, calls):
     """A torch.profiler trace of ``calls`` calls: wall and kernel time per
-    call, kernel time by kind, the top kernels and the device's idle
-    share."""
+    call, kernel time by kind and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -194,7 +192,6 @@ def trace_calls(call, calls):
     kernel = sum(by_kind.values())
     return {"traced_calls": calls, "wall_ms_per_call": wall / calls,
             "kernel_ms_per_call": kernel,
-            "device_idle_share": 1 - kernel * calls / wall,
             "kernel_ms_per_call_by_kind": by_kind,
             "top_kernels_ms_launches_per_call": sorted(top)[::-1][:12]}
 
