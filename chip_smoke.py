@@ -9,8 +9,9 @@ not 0):
   1. no card, no run: without CUDA the script exits 1 with no result;
   2. the card's name and power limit (nvidia-smi);
   3. build the CUDA kernels (NMS, int8 conv, requant, window gather, GT
-     rasterizers, OHEM, and the empty kernel the launch floors are timed
-     with) from densebox_tpu_torch/csrc, one nvcc per source, all at once;
+     rasterizers, OHEM, the int8 neck, and the empty kernel the launch
+     floors are timed with) from densebox_tpu_torch/csrc, one nvcc per
+     source, all at once;
   4. NMS kernel against its plain PyTorch version on the card (B=8,
      K in {256, 512, 1024}, random boxes and IoU-on-threshold pairs: keep
      masks, indices, boxes and scores identical; then keep masks on every
@@ -50,10 +51,16 @@ not 0):
      card against the plain versions on the CPU with the same int8 state
      (B=2, 240x320): every int8 code and map identical; the fused and the
      hybrid chain identical on the card; the forward's time on the card;
+     then the int8 neck kernel against its plain version on the card at
+     kitti's four scales of a 480x640 canvas (B=8 and 64, 256 + 512
+     channels, an output scale of 2^-5 and an arbitrary one): every code
+     identical; event times of a call's four launches, the plain
+     version's, and device times by CUDA-graph replay beside the bound of
+     the call's bytes;
  11. serve the turbo model in int8 (calibrated on the card from the canvas
      batch, one scale), as phase 7: served equal to alone, one int8 conv
      launch per conv per device call, all 14 on the tensor-core variant,
-     one NMS launch per device call;
+     one NMS and one int8 neck launch per device call;
  12. the same with the hybrid chain (int32 conv, then requant);
  13. window-gather kernel against its plain version on the card, bitwise,
      in bf16 and f32: the MALF serve shape (B=8, S=5, L=5, 170x228, D=64,
@@ -216,10 +223,12 @@ not 0):
      the device time of the paper-width f32 detect call (B=8, 480 x 640, 4
      scales) at the port's precision and with TF32 forced on, in turns,
      median (q1, q3); and the bf16 x2 upsample (the bf16 paper model's at
-     480 x 640 and on the KITTI canvas, the int8 chain's) against the
-     CPU's: as cuBLAS's bf16 GEMM with and without its reduced bf16
-     reduction (counted), and as the port takes it (float32 products
-     rounded once: equal);
+     480 x 640 and on the KITTI canvas) against the CPU's: as cuBLAS's
+     bf16 GEMM with and without its reduced bf16 reduction (counted), and
+     as the port takes it (float32 products rounded once: equal); the int8
+     chain's upsample runs inside the int8 neck kernel, whose codes in the
+     turbo model's forward equal the plain version's on the CPU from the
+     same inputs;
  28. certification: ``python -m densebox_tpu_torch.certify`` as a
      subprocess for fast-s2d2-w0.5-lm4 at 200 steps and 2 eval batches:
      one JSON row with finite AP@0.50 in bf16 and int8 and a finite
@@ -243,12 +252,13 @@ not 0):
 At the end torch's three precision flags read as they did at the start.
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
-lists the seven kernels (with the least time the card could take for the
+lists the eight kernels (with the least time the card could take for the
 same bytes or operations, from the published peaks of an H100 SXM, and one
 PyTorch call's time where one computes the same function; ``ms`` is device
 time by CUDA-graph replay for the int8 conv, the window gather, the
 rasterizers and OHEM, which also carry ``floor_ms``, an empty launch of their
-grid, and their launches on the paths of phases 24-26 as
+grid; the int8 neck's ``ms`` is event time, and it carries its device time
+by replay as ``device_ms`` and its B=64 call as ``B64``; and their launches on the paths of phases 24-26 as
 ``launches_<run>``), after the card line again and the script's seconds;
 the last line is {"ok": true, "device": {...}}.
 
@@ -278,7 +288,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # csrc/<name>.cu; floor.cu is the empty kernel the launch floors are timed with
-KERNELS = ("nms", "qconv", "requant", "window", "labels", "ohem", "floor")
+KERNELS = ("nms", "qconv", "requant", "window", "labels", "ohem", "neck",
+           "floor")
 
 
 def emit(obj) -> None:
@@ -915,6 +926,98 @@ def phase_forward_int8():
                              f"card: {fused_eq_hybrid}")
 
 
+def neck_levels(b, seed):
+    """The int8 neck's inputs at kitti's four scales of a 480 x 640 canvas,
+    batch ``b``, on the card: f3 codes (256 channels) over the whole int8
+    range, f4 (512 channels) mostly a ReLU's output with a few negatives."""
+    import torch
+
+    from densebox_tpu_torch import kitti_vehicle
+    from densebox_tpu_torch.infer.detector import pyramid_shapes
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    levels = []
+    for h, w, _, _ in pyramid_shapes(480, 640, kitti_vehicle().infer.scales):
+        f3 = torch.randint(-127, 128, (b, h // 4, w // 4, 256), generator=g,
+                           device="cuda", dtype=torch.int8)
+        f4 = torch.rand((b, h // 8, w // 8, 512), generator=g,
+                        device="cuda") * 5.0
+        f4 = torch.where(torch.rand(f4.shape, generator=g, device="cuda")
+                         < 0.3, 0.0, f4) - 0.05
+        levels.append((f3, f4))
+    return levels
+
+
+def phase_neck():
+    """The int8 neck kernel against its plain version on the card, at
+    kitti's four scales (B=8 and 64) and two output scales, a power of two
+    (quotients on exact halves) and an arbitrary one; times of a call's four
+    launches at B=8 (the main path's serve batch) and 64 (the offline one)
+    beside the bound of their bytes."""
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import neck as kneck
+
+    s3 = torch.tensor(0.0173, device="cuda")
+    scales = {"pow2": torch.tensor(2.0 ** -5, device="cuda"),
+              "arbitrary": torch.tensor(0.0219, device="cuda")}
+    results, err, times = {}, 0.0, {}
+    for b in (8, 64):
+        levels = neck_levels(b, seed=b)
+        for key, so in scales.items():
+            for f3, f4 in levels:
+                got = kneck.int8_neck(f3, f4, s3, so)
+                want = kneck.neck_reference(f3, f4, s3, so)
+                n_diff = int((got != want).sum())
+                err = max(err, float((got.int() - want.int()).abs().max()))
+                row = results.setdefault(f"B{b}_{key}", {
+                    "shapes": [], "codes": 0, "codes_differing": 0})
+                row["shapes"].append(list(got.shape))
+                row["codes"] += got.numel()
+                row["codes_differing"] += n_diff
+                del got, want
+        so = scales["arbitrary"]
+
+        def kernel():
+            return [kneck.int8_neck(f3, f4, s3, so) for f3, f4 in levels]
+
+        def plain():
+            return [kneck.neck_reference(f3, f4, s3, so) for f3, f4 in levels]
+
+        # f3 codes and f4 in float32 read, 256 + 512 codes written a
+        # position; per code written at most eight float operations (the
+        # upsample's two products and sum in each direction, the quantise)
+        n_out = sum(f3.numel() * 3 for f3, _ in levels)
+        nbytes = sum(f3.numel() * 4 + f4.numel() * 4 for f3, f4 in levels)
+        bnd = bound(nbytes, n_out * 8)
+        dev = device_ms(kernel, 20 if b == 8 else 3)
+        times[b] = {"kernel_ms": median_ms(kernel, 20),
+                    "plain_ms": median_ms(plain, 5), "device_ms": dev,
+                    "device_ms_per_image": dev / b, "bytes": nbytes,
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "share_of_bound": bnd[0] / dev}
+        del levels
+        torch.cuda.empty_cache()
+    emit({"phase": "neck_kernel", "canvas": [480, 640],
+          "channels": [256, 512], "results": results, "max_abs_err": err,
+          "timing": "kernel_ms, plain_ms: CUDA events around one call of "
+                    "the four scales, median; device_ms: the call replayed "
+                    "in a CUDA graph (20 calls at B=8, 3 at B=64) between "
+                    "one pair of events, median of 5",
+          "calls": {f"B{b}": t for b, t in times.items()}})
+    if any(r["codes_differing"] for r in results.values()):
+        raise AssertionError(f"int8 neck kernel disagrees with its plain "
+                             f"version: {results}")
+    t8, t64 = times[8], times[64]
+    return err, (t8["kernel_ms"], t8["plain_ms"]), (
+        t8["bound_ms"], t8["bound_by"]), None, {
+        "shape_timed": "kitti's 4 scales of 480x640, B=8, a call",
+        "device_ms": t8["device_ms"],
+        "share_of_bound": t8["share_of_bound"],
+        "B64": {k: t64[k] for k in ("kernel_ms", "plain_ms", "device_ms",
+                                    "bound_ms", "share_of_bound")}}
+
+
 def request_images(n, canvas_hw, seed):
     rng = np.random.RandomState(seed)
     hc, wc = canvas_hw
@@ -1273,8 +1376,9 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
                  for k in ("boxes", "scores", "lm_points") if k in r)
     calls = stats["device_calls"]
     # one int8 conv per conv of the model, and with the hybrid chain one
-    # requant after each (the float model launches neither); one window
-    # gather per call for a landmark model
+    # requant after each, and one int8 neck per call (the float model
+    # launches none of them); one window gather per call for a landmark
+    # model
     shapes = conv_shapes(model_cfg) if quant else {}
     n_conv = len(shapes)
     # each conv on the variant its widths name: the tensor cores whenever
@@ -1286,7 +1390,8 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
     want = {"nms": calls, "qconv": n_conv * calls,
             "requant": n_conv * calls if quant == "hybrid" else 0,
             "window": calls if model_cfg.num_landmarks else 0,
-            "rasterize_boxes": 0, "rasterize_landmarks": 0, "ohem": 0}
+            "rasterize_boxes": 0, "rasterize_landmarks": 0, "ohem": 0,
+            "neck": calls if quant else 0}
     lm = ({"lm_valid_per_request": [int(r["lm_valid"].sum()) for r in results]}
           if model_cfg.num_landmarks else {})
     emit({"phase": name, "requests": stats["requests"],
@@ -2353,7 +2458,7 @@ def phase_cli(bare_ms: float) -> None:
         losses = [v["loss_total"] for _, v in logged]
         window_ms = 1e3 / logged[-1][1]["steps_per_sec"]
         want = {"rasterize_boxes": 12, "rasterize_landmarks": 0, "ohem": 12,
-                "nms": 0, "qconv": 0, "requant": 0, "window": 0}
+                "nms": 0, "qconv": 0, "requant": 0, "window": 0, "neck": 0}
         emit({"phase": "cli_train", "argv": "train --data-dir D --workdir W "
               "--steps 12 --ckpt-every 6 --log-every 6",
               "model": "kitti_vehicle w1.0 f32 (the CLI's defaults)",
@@ -2470,7 +2575,7 @@ def phase_cli(bare_ms: float) -> None:
             v = kq.kernel_variant(cin, cout, k)
             want_variants[v] = want_variants.get(v, 0) + calls
         want = {"nms": 8, "qconv": len(shapes) * calls, "requant": 0,
-                "window": 0}
+                "window": 0, "neck": calls}
         got = {k: launches[k] for k in want}
         counts = [int(n) for n in re.findall(r": (\d+) detections", out)]
         files = sorted(os.listdir(kit)) if os.path.isdir(kit) else []
@@ -3067,7 +3172,7 @@ import torch
 from densebox_tpu_torch import export, infer
 from densebox_tpu_torch.infer import detector
 from densebox_tpu_torch.models import DenseBox, QuantDenseBox
-from densebox_tpu_torch.ops.kernels import nms, qconv
+from densebox_tpu_torch.ops.kernels import neck, nms, qconv
 
 
 def boom(*args, **kwargs):
@@ -3085,7 +3190,8 @@ call, meta = export.load_exported(sys.argv[1])
 out = call(torch.from_numpy(np.load(sys.argv[2])).cuda())
 torch.cuda.synchronize()
 np.savez(sys.argv[3], **{k: v.cpu().numpy() for k, v in out.items()})
-print(json.dumps({"launches": {"nms": nms.launches, "qconv": qconv.launches},
+print(json.dumps({"launches": {"nms": nms.launches, "qconv": qconv.launches,
+                               "neck": neck.launches},
                   "jax_modules": sorted(m for m in sys.modules if m.split(
                       ".")[0] in ("jax", "jaxlib", "flax") and sys.modules[m])}))
 """
@@ -3214,7 +3320,7 @@ def phase_export():
                              "requant": 0,
                              "window": 1 if cfg.num_landmarks else 0,
                              "rasterize_boxes": 0, "rasterize_landmarks": 0,
-                             "ohem": 0}
+                             "ohem": 0, "neck": 1 if quant else 0}
             if not all(equal.values()) or not want["valid"].any() or \
                     not_as_alone:
                 raise AssertionError(f"export {name}: the artifact differs "
@@ -3258,7 +3364,7 @@ def phase_export():
                           "QuantDenseBox.forward", "detect_batch"],
               "seconds": fresh_s, **said, "outputs_equal_parent": fresh_equal})
         if not all(fresh_equal.values()) or said["jax_modules"] or \
-                said["launches"] != {"nms": 1, "qconv": 14}:
+                said["launches"] != {"nms": 1, "qconv": 14, "neck": 1}:
             raise AssertionError(f"fresh-process load: {said} {fresh_equal}")
 
         # cli export, then cli serve --artifact as a subprocess
@@ -3697,9 +3803,10 @@ def phase_precision(bare_ms: float) -> None:
         del paper
 
         # the bf16 x2 upsample against the CPU, with and without cuBLAS's
-        # reduced bf16 reduction: the bf16 paper model's and the int8
-        # chain's (turbo, calibrated on the same images)
-        ups = {}
+        # reduced bf16 reduction: the bf16 paper model's; the int8 chain's
+        # (turbo, calibrated on the same images) inside the neck kernel,
+        # whose codes are held to the plain version on the CPU
+        ups, necks = {}, []
 
         def capture(fn, key):
             def wrapped(t):
@@ -3719,17 +3826,32 @@ def phase_precision(bare_ms: float) -> None:
             sd = {k: v.cuda() for k, v in float_state(tcfg).items()}
             q = QuantDenseBox(tcfg, device="cuda")
             q.load_state_dict(quantize_densebox(sd, tcfg, imgs))
-            with mock.patch.object(mq, "upsample2x_align_corners", capture(
-                    mq.upsample2x_align_corners, "turbo_int8")):
+            neck = mq.int8_neck
+
+            def recorded_neck(*args):
+                out = neck(*args)
+                necks.append(([t.cpu() for t in args], out.cpu()))
+                return out
+
+            with mock.patch.object(mq, "int8_neck", recorded_neck):
                 q(imgs)
             result = {k: upsample_vs_cpu(v) for k, v in ups.items()}
+        neck_check = {"launches": len(necks), "codes": 0, "differ": 0}
+        for args, got in necks:
+            neck_check["codes"] += got.numel()
+            neck_check["differ"] += int(
+                (got != mq.int8_neck(*args)).sum())
         emit({"phase": "precision_bf16_upsample", "canvases": {
                   "paper_bf16": [8, 480, 640], "turbo_int8": [8, 480, 640],
                   "paper_bf16_kitti_canvas": [2, *KITTI_CANVAS]},
-              "upsample": result})
+              "upsample": result, "turbo_int8_neck_vs_cpu": neck_check})
         if any(r["port"]["differ"] for r in result.values()):
             raise AssertionError(f"the port's bf16 upsample differs from "
                                  f"the CPU's: {result}")
+        if not necks or neck_check["differ"]:
+            raise AssertionError(f"the int8 neck of the turbo model on the "
+                                 f"card differs from its plain version on "
+                                 f"the CPU: {neck_check}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "precision_seconds",
@@ -3826,8 +3948,8 @@ def bench_launches(argv, iters):
     args = bench.parse_args(argv)
     cfg = bench.model_cfg(args, bench.run_shape(args)[2])
     want = dict.fromkeys(("nms", "qconv", "requant", "window",
-                          "rasterize_boxes", "rasterize_landmarks", "ohem"),
-                         0)
+                          "rasterize_boxes", "rasterize_landmarks", "ohem",
+                          "neck"), 0)
     if args.mode == "train":
         want.update(rasterize_boxes=iters,
                     ohem=iters * (2 if cfg.use_refine else 1))
@@ -3835,7 +3957,8 @@ def bench_launches(argv, iters):
     n_conv = len(conv_shapes(cfg)) if args.dtype == "int8" else 0
     want.update(nms=iters, qconv=n_conv * iters,
                 requant=n_conv * iters if args.qbackend == "hybrid" else 0,
-                window=iters if cfg.num_landmarks else 0)
+                window=iters if cfg.num_landmarks else 0,
+                neck=iters if n_conv and args.qbackend != "xla" else 0)
     return want
 
 
@@ -4032,6 +4155,7 @@ def main() -> int:
     rows["qconv"] = phase_qconv() + ({},)
     rows["requant"] = phase_requant() + (None, {})
     phase_forward_int8()
+    rows["neck"] = phase_neck()
     _, turbo, turbo_infer, label = serving_cells()[1]
     for quant in ("fused", "hybrid"):
         launches[quant] = phase_serve(f"serve_turbo_int8_{quant}", turbo,
@@ -4062,8 +4186,8 @@ def main() -> int:
     phase_certify()
     multi.update(phase_bench())
 
-    # (name, source, TPU kernel it replaces, the main-path run its launch
-    # count is read from, its counter)
+    # (name, source, TPU kernel it replaces (none for the int8 neck), the
+    # main-path run its launch count is read from, its counter)
     table = [
         ("greedy_nms_keep", "nms", "nms.py:28", "paper", "nms"),
         ("qconv_int8", "qconv", "qconv.py:59", "fused", "qconv"),
@@ -4073,7 +4197,8 @@ def main() -> int:
          "rasterize_boxes"),
         ("rasterize_landmarks", "labels", "labels.py:79", "train_malf",
          "rasterize_landmarks"),
-        ("ohem_select", "ohem", "ohem.py:53", "train_kitti", "ohem")]
+        ("ohem_select", "ohem", "ohem.py:53", "train_kitti", "ohem"),
+        ("int8_neck", "neck", None, "fused", "neck")]
     flags = precision_flags()
     emit({"phase": "precision_flags_at_end", "flags": flags,
           "torch_defaults": TORCH_DEFAULTS})
@@ -4088,7 +4213,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"densebox_tpu_torch/csrc/{src}.cu",
-            "replaces": f"densebox_tpu/ops/pallas/{replaces}",
+            "replaces": (f"densebox_tpu/ops/pallas/{replaces}" if replaces
+                         else "none: XLA fused these steps"),
             "launches": launches[run][counter], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, **more,

@@ -86,7 +86,7 @@ def reference_precision(compute_dtype, int8_chain: bool = False):
     (``int8_chain``) cuBLAS may not reduce a bfloat16 product in reduced
     precision, as the reference reduces in float32. (The chain's one such
     product, the x2 upsample, is taken in float32 outright,
-    ``models/densebox.py:interp_bmm``: cuBLAS's bfloat16 GEMM rounds rare
+    ``ops/upsample.py:interp_bmm``: cuBLAS's bfloat16 GEMM rounds rare
     elements otherwise with this switch either way.) Under bfloat16
     compute TF32 is left as it is: the reference's ``Precision.DEFAULT`` is
     the fast path.

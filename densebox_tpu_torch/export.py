@@ -5,9 +5,10 @@
 every pyramid scale, decode, NMS, landmark decode) with ``torch.export``
 (non-strict, under ``torch.no_grad()``) at a fixed input contract,
 ``(batch, H, W, 3) float32 RGB in [0, 1]`` on one device, with the weights
-baked in as the program's parameters and buffers. The four kernels of the
+baked in as the program's parameters and buffers. The five kernels of the
 path are the custom operators ``densebox::greedy_keep``, ``qconv_int8``,
-``requant_epilogue`` and ``gather_windows`` (``ops/kernels/``): each is one
+``requant_epilogue``, ``int8_neck`` and ``gather_windows``
+(``ops/kernels/``): each is one
 opaque node of the program, so the program launches the hand-written
 kernels when it runs on the card and never holds their plain versions.
 
@@ -40,7 +41,7 @@ from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.infer.detector import detect_batch
 # importing the kernel modules registers the program's custom operators
 from densebox_tpu_torch.ops.kernels import (  # noqa: F401
-    nms, qconv, requant, window)
+    neck, nms, qconv, requant, window)
 
 MAGIC = b"DENSEBOX_TORCH_EXPORT_V1\n"
 

@@ -24,7 +24,6 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,7 +31,9 @@ from torch import nn
 from densebox_tpu_torch.config import ModelCfg
 from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.ops.decode import div
-from densebox_tpu_torch.utils.constants import constant_cache
+from densebox_tpu_torch.ops.upsample import (  # noqa: F401
+    _interp_matrix, interp_bmm, interp_matrix_align_corners,
+    upsample2x_align_corners)
 
 # (kind, name, base_width): the paper trunk, VGG19 through conv4_4.
 TRUNK_PLAN = (
@@ -82,64 +83,6 @@ def space_to_depth(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x.reshape(b, h // r, r, w // r, r, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // r, w // r, c * r * r)
-
-
-def interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
-    """Dense (n_out, n_in) 1-D bilinear interpolation matrix with
-    align_corners=True semantics: output sample o reads input position
-    o * (n_in - 1) / (n_out - 1)."""
-    if n_in == 1:
-        return np.ones((n_out, 1), np.float32)
-    pos = np.arange(n_out, dtype=np.float64) * (n_in - 1) / max(n_out - 1, 1)
-    lo = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 2)
-    w = pos - lo
-    m = np.zeros((n_out, n_in), np.float64)
-    m[np.arange(n_out), lo] = 1.0 - w
-    m[np.arange(n_out), lo + 1] = w
-    return m.astype(np.float32)
-
-
-@constant_cache
-def _interp_matrix(n_in: int, n_out: int, device: torch.device,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """``interp_matrix_align_corners`` on the device, made once per shape:
-    a blocking upload in every forward would stall the host until the
-    card drains its queue. A normal tensor even when first made under
-    inference mode, so that autograd may save it. Read-only."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(interp_matrix_align_corners(n_in, n_out)).to(
-            device, dtype)
-
-
-def interp_bmm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``a`` (m, k), broadcast over the batch with stride 0, times each
-    (k, n) matrix of ``x`` (B, k, n), in x's dtype. A bfloat16 product is
-    taken in float32 (TF32 off) and rounded to bfloat16 once, as the CPU's
-    bfloat16 product and the reference's bfloat16 dot (float32
-    accumulation) round: cuBLAS's bfloat16 GEMM gives another last bit in
-    rare elements, with or without its reduced-precision reduction
-    (measured on the H100), while each output's float32 sum of its two
-    exact products is the same in any order."""
-    if x.dtype != torch.bfloat16:
-        return torch.bmm(a.expand(x.shape[0], *a.shape), x)
-    with reference_precision(torch.float32):
-        y = torch.bmm(a.float().expand(x.shape[0], *a.shape), x.float())
-    return y.to(x.dtype)
-
-
-def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """x2 bilinear upsample (align_corners) of an NHWC tensor as two
-    products with the interpolation matrices (in x's dtype), W first as in
-    the JAX model, each rounded to x's dtype (``interp_bmm``). Returns a
-    contiguous NHWC tensor. Batched products against the matrix broadcast
-    with stride 0, so that the activation is neither copied nor transposed
-    (``torch.matmul`` and ``einsum`` would transpose it)."""
-    b, h, w, c = x.shape
-    aw = _interp_matrix(w, 2 * w, x.device, x.dtype)
-    ah = _interp_matrix(h, 2 * h, x.device, x.dtype)
-    y = interp_bmm(aw, x.reshape(b * h, w, c))
-    y = interp_bmm(ah, y.reshape(b, h, 2 * w * c))
-    return y.reshape(b, 2 * h, 2 * w, c)
 
 
 # (device, dtype, shape, weight shape, padding) of a convolution's batch ->

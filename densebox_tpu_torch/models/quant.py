@@ -36,14 +36,15 @@ from torch import nn
 from densebox_tpu_torch.config import ModelCfg
 from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.models.densebox import (DenseBox, check_divisible,
-                                                space_to_depth, trunk_plan,
-                                                upsample2x_align_corners)
+                                                space_to_depth, trunk_plan)
+from densebox_tpu_torch.ops.int8 import GLUE, quant_act
+from densebox_tpu_torch.ops.kernels.neck import int8_neck
 from densebox_tpu_torch.ops.kernels.qconv import qconv_int8
 from densebox_tpu_torch.ops.kernels.requant import (channel_vector,
                                                     requant_epilogue)
+from densebox_tpu_torch.ops.upsample import upsample2x_align_corners
 from densebox_tpu_torch.utils.constants import is_plain
 
-GLUE = torch.bfloat16   # dtype of the float tensors between int8 stages
 BACKENDS = ("fused", "hybrid", "xla")
 
 
@@ -69,13 +70,6 @@ def quant_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s = (w.abs().amax(dim=(1, 2, 3)) / 127.0).clamp_min(1e-12)
     wq = torch.round(w / s[:, None, None, None]).clamp(-127, 127)
     return wq.to(torch.int8).permute(0, 2, 3, 1).contiguous(), s
-
-
-def quant_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """round(x / scale) clipped to [-127, 127], int8 (a division, as JAX's
-    ``_quant_act``: multiplying by the reciprocal would round differently)."""
-    return torch.round(x.to(torch.float32) / scale).clamp(-127, 127).to(
-        torch.int8)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -186,7 +180,11 @@ class QuantDenseBox(nn.Module):
     ``backend='fused'`` (JAX ``'pallas'``) runs each conv as one
     ``qconv_int8`` with its epilogue; ``backend='hybrid'`` (JAX
     ``'hybrid'``) runs the int32-accumulator ``qconv_int8`` and then
-    ``requant_epilogue``. The two compute the same values bit for bit.
+    ``requant_epilogue``. The two compute the same values bit for bit. In
+    both, ``int8_neck`` joins trunk and heads: one launch a scale writes the
+    codes that every head's conv1 reads, where the heads' conv1 input scales
+    are equal (``quantize_densebox`` makes them so), and one a distinct
+    scale otherwise.
     ``backend='xla'`` (JAX ``'xla'``, that package's default) is another
     chain: each conv quantises its bf16 input, runs the int32-accumulator
     ``qconv_int8`` and dequantises ``f32(acc) * (in_scale * w_scale) +
@@ -204,7 +202,8 @@ class QuantDenseBox(nn.Module):
     ``1 / in_scale`` of the conv that reads its output, each as a contiguous
     (Cout,) tensor) depend on the state alone, so they are computed at the
     first forward after the state was loaded or moved, and kept (not while
-    torch traces the forward: ``utils/constants.py``). After changing a
+    torch traces the forward: ``utils/constants.py``), and so are the heads
+    grouped by equal conv1 input scale (one host read). After changing a
     buffer in place, call ``refresh_constants()``.
     """
 
@@ -219,6 +218,7 @@ class QuantDenseBox(nn.Module):
         self.plan = trunk_plan(cfg)
         self.convs = [n for k, n, _ in self.plan if k == "conv"]
         self.f3_tap = [n for n in self.convs if n.startswith("conv3")][-1]
+        self.heads = ["det", "loc"] + (["lm"] if cfg.num_landmarks else [])
         self._q: Dict[str, QConv] = {}
         for name, (cout, cin, k, _) in conv_shapes(cfg).items():
             q = QConv(cout, cin, k, device=device)
@@ -232,11 +232,13 @@ class QuantDenseBox(nn.Module):
             self._q[name] = q
         self.register_buffer("f4_scale", torch.ones((), device=device))
         self._consts: Dict[Tuple[str, Optional[str]], tuple] = {}
+        self._neck_groups: Optional[List[List[str]]] = None
 
     def refresh_constants(self) -> None:
-        """Forget the cached epilogue vectors; the next forward recomputes
-        them from the buffers."""
+        """Forget the cached epilogue vectors and head groups; the next
+        forward recomputes them from the buffers."""
         self._consts = {}
+        self._neck_groups = None
 
     def load_state_dict(self, *args, **kwargs):
         self.refresh_constants()
@@ -260,6 +262,24 @@ class QuantDenseBox(nn.Module):
             if is_plain(consts[0]):     # never the fake tensors of a trace
                 self._consts[(name, nxt)] = consts
         return consts
+
+    def _neck_groups_of_state(self) -> List[List[str]]:
+        """The heads' conv1 names grouped by equal input scale, in head
+        order: one group where ``quantize_densebox`` made the state, more
+        for a state from elsewhere. One host read, kept until the state
+        changes; while torch traces a forward whose state it never read, a
+        group per head, and nothing kept."""
+        if self._neck_groups is not None:
+            return self._neck_groups
+        names = [f"{p}.{p}_conv1" for p in self.heads]
+        scales = [self._q[n].in_scale for n in names]
+        if not all(is_plain(s) for s in scales):
+            return [[n] for n in names]
+        groups: Dict[float, List[str]] = {}
+        for n, v in zip(names, torch.stack(scales).tolist()):
+            groups.setdefault(v, []).append(n)
+        self._neck_groups = list(groups.values())
+        return self._neck_groups
 
     def _conv(self, x_q: torch.Tensor, name: str, nxt: Optional[str], *,
               relu: bool = True) -> torch.Tensor:
@@ -341,13 +361,17 @@ class QuantDenseBox(nn.Module):
                 # max-pool commutes with the monotonic requant: pooling the
                 # int8 codes equals pooling in float, then quantising
                 x_q = max_pool_2x2(x_q)
-        f4 = x_q.to(GLUE)               # the last trunk conv emitted f32
-        f3 = (f3_q.to(torch.float32) * in_scale[nxt[self.f3_tap]]).to(GLUE)
-        feat = torch.cat([f3, upsample2x_align_corners(f4)], dim=-1)
+        # the heads' input codes, one launch for each group of heads that
+        # share a conv1 input scale (x_q: conv4_4's f32 output)
+        feat_q = {}
+        for group in self._neck_groups_of_state():
+            codes = int8_neck(f3_q, x_q, in_scale[nxt[self.f3_tap]],
+                              in_scale[group[0]])
+            feat_q.update((c1, codes) for c1 in group)
 
         def head(prefix):
             c1, c2 = f"{prefix}.{prefix}_conv1", f"{prefix}.{prefix}_conv2"
-            h_q = self._conv(quant_act(feat, in_scale[c1]), c1, c2)
+            h_q = self._conv(feat_q[c1], c1, c2)
             return self._conv(h_q, c2, None, relu=False)
 
         out = {"score": head("det"), "loc": head("loc")}

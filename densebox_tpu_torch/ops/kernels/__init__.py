@@ -5,11 +5,11 @@ from typing import Dict
 
 
 def _counted_modules():
-    from densebox_tpu_torch.ops.kernels import (labels, nms, ohem, qconv,
-                                                requant, window)
+    from densebox_tpu_torch.ops.kernels import (labels, neck, nms, ohem,
+                                                qconv, requant, window)
 
     return {"nms": nms, "qconv": qconv, "requant": requant, "window": window,
-            "labels": labels, "ohem": ohem}
+            "labels": labels, "ohem": ohem, "neck": neck}
 
 
 def reset_launch_counts() -> None:

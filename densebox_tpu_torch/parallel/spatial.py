@@ -32,9 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from densebox_tpu_torch.device import reference_precision
-from densebox_tpu_torch.models.densebox import (
-    DenseBox, _interp_matrix, interp_bmm, interp_matrix_align_corners,
-    space_to_depth)
+from densebox_tpu_torch.models.densebox import DenseBox, space_to_depth
+from densebox_tpu_torch.ops.upsample import (
+    _interp_matrix, interp_bmm, interp_matrix_align_corners)
 
 
 def shard_rows(h: int, n: int, divisor: int) -> List[Tuple[int, int]]:

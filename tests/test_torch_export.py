@@ -182,9 +182,9 @@ def test_artifact_matches_jax_artifact(artifacts, tmp_path, name):
 
 
 @pytest.mark.parametrize("name,kernels", [
-    ("int8_fused", {"greedy_keep": 1, "qconv_int8": 14}),
+    ("int8_fused", {"greedy_keep": 1, "qconv_int8": 14, "int8_neck": 1}),
     ("int8_hybrid", {"greedy_keep": 1, "qconv_int8": 14,
-                     "requant_epilogue": 14}),
+                     "requant_epilogue": 14, "int8_neck": 1}),
     ("int8_xla", {"greedy_keep": 1, "qconv_int8": 14}),
     ("float_4scale", {"greedy_keep": 1}),
     ("landmarks_refine", {"greedy_keep": 1, "gather_windows": 1})])

@@ -1,4 +1,4 @@
-"""The export path on the card: the four custom operators of the detect path
+"""The export path on the card: the five custom operators of the detect path
 launch their CUDA kernels (and never their plain versions) on CUDA tensors,
 and an artifact exported on the card equals the live ``detect_batch`` bit
 for bit with the same launches per call.
@@ -22,6 +22,7 @@ from densebox_tpu_torch.export import (artifact_meta, export_detect_program,
 from densebox_tpu_torch.infer import detect_batch
 from densebox_tpu_torch.models import (DenseBox, QuantDenseBox, init_params,
                                        quantize_densebox)
+from densebox_tpu_torch.ops.kernels import neck as kneck
 from densebox_tpu_torch.ops.kernels import nms as knms
 from densebox_tpu_torch.ops.kernels import qconv as kqconv
 from densebox_tpu_torch.ops.kernels import requant as krequant
@@ -58,6 +59,8 @@ def test_custom_ops_launch_their_kernels(cuda):
     sel = torch.from_numpy(rng.randint(0, 3, (2, 5)).astype(np.int32))
     y0 = torch.from_numpy(rng.randint(0, 16, (2, 5, 4)).astype(np.int32))
     x0 = torch.from_numpy(rng.randint(0, 24, (2, 5, 4)).astype(np.int32))
+    f4 = torch.from_numpy(rng.rand(2, 6, 8, 16).astype(np.float32))
+    s3 = torch.tensor(0.02)
     cases = [
         (knms, "greedy_keep_reference",
          lambda d: knms.greedy_keep(torch.from_numpy(boxes).to(d),
@@ -70,7 +73,9 @@ def test_custom_ops_launch_their_kernels(cuda):
                                              bias.to(d), None, relu=False)),
         (kwindow, "gather_windows_reference",
          lambda d: kwindow.gather_windows(maps.to(d), sel.to(d), y0.to(d),
-                                          x0.to(d), 8))]
+                                          x0.to(d), 8)),
+        (kneck, "neck_reference",
+         lambda d: kneck.int8_neck(x.to(d), f4.to(d), s3.to(d), s3.to(d)))]
     for mod, reference, run in cases:
         want = run("cpu")
         before = mod.launches
@@ -84,7 +89,8 @@ def test_custom_ops_launch_their_kernels(cuda):
 
 def _launches():
     return {"nms": knms.launches, "qconv": kqconv.launches,
-            "requant": krequant.launches, "window": kwindow.launches}
+            "requant": krequant.launches, "window": kwindow.launches,
+            "neck": kneck.launches}
 
 
 def _models(dev):
@@ -104,9 +110,9 @@ def _models(dev):
     infer = dataclasses.replace(kitti_vehicle().infer, score_thresh=-1e9,
                                 scales=(1.0,), lm_topk=8)
     return x, [(q.eval(), infer, {"nms": 1, "qconv": 14, "requant": 0,
-                                  "window": 0}),
+                                  "window": 0, "neck": 1}),
                (lm.eval(), infer, {"nms": 1, "qconv": 0, "requant": 0,
-                                   "window": 1})]
+                                   "window": 1, "neck": 0})]
 
 
 @pytest.mark.gpu

@@ -235,6 +235,32 @@ def test_forward_matches_jax_eager_twins(quant_case, backend):
 
 
 @pytest.mark.parametrize("backend", ["pallas", "hybrid"])
+def test_forward_unequal_head_scales_matches_jax_eager_twins(quant_case,
+                                                            backend):
+    """A state whose heads' conv1 input scales differ (loaded from
+    elsewhere: ``quantize_densebox`` makes them equal) quantises the shared
+    features once per distinct scale, each head at its own: the maps of
+    JAX's chain, which quantises them once per head."""
+    cfg, x, _, qparams = quant_case
+    qparams = dict(qparams)
+    loc = dict(qparams["loc/loc_conv1"])
+    loc["in_scale"] = loc["in_scale"] * np.float32(1.5)
+    qparams["loc/loc_conv1"] = loc
+    with jax_twins():
+        want = jax_quant.QuantDenseBox(cfg, backend=backend).apply(
+            jax.tree.map(jnp.asarray, qparams), jnp.asarray(x))
+    port = _port_model(cfg, qparams,
+                       "fused" if backend == "pallas" else "hybrid")
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x))
+    others = [f"{p}.{p}_conv1" for p in port.heads if p != "loc"]
+    assert port._neck_groups_of_state() == [others, ["loc.loc_conv1"]]
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "hybrid"])
 def test_forward_close_to_jax_kernels(quant_case, backend):
     """Against JAX's chain as it runs (Pallas kernels in interpret mode)."""
     cfg, x, _, qparams = quant_case
