@@ -7,7 +7,9 @@ numbers are the upper readings the limits are set below.
     python3 -m port_bench.control --workload <name> --seed <n> [...]
 
 Prints one JSON line per seed with the numbers and whether they pass the
-cell's limits. The benchmark's own runs never run it.
+cell's limits (a data-parallel train cell's line adds its faults planted
+in the reference, ``train_dp_control``). The benchmark's own runs never
+run it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,61 @@ def train_control(c, seed: int, device) -> dict:
     losses, trace, after, _ = ref_train.steps(weights, conf, batches, draws,
                                               tf32=True)
     return drv.check(conf, weights, batches, draws, losses, trace, after)
+
+
+def _rows(tree, idx):
+    """Rows ``idx`` of every tensor of a (nested) dict of batch-first
+    tensors."""
+    return {k: _rows(v, idx) if isinstance(v, dict) else v[idx]
+            for k, v in tree.items()}
+
+
+def train_dp_control(c, seed: int, device):
+    """A data-parallel train cell's control: the reference's steps on the
+    global batch with TF32 on in the program's place (``rank_gap`` has no
+    reading: the reference has no ranks). Besides, the faults of the
+    program planted in the reference at the cell's size, each judged the
+    same way: ``half_batch`` (each rank's loss over the first half of its
+    rows), ``averaged`` (the gradients' sum divided by the ranks),
+    ``shifted_shard`` (rank 1 takes the draws of the rows one past its
+    own) and ``no_exchange`` (rank 0 steps on its own rows' gradient over
+    the global counts: its gradient and change; its losses, summed over
+    ranks that went apart, are not followed)."""
+    from port_bench.reference import train as ref_train
+
+    drv = harness.driver("train_dp", c.root)
+    single = harness.driver("train", c.root)
+    conf = drv.conf_of(c)
+    n, b, world = drv.COMPARED_STEPS, drv.rank_size(c), c.entry["chips"]
+    weights = drv.weights_of(c, conf, seed, device)
+    batches = [drv.global_batch(c, seed, i, device) for i in range(n)]
+    draws = [drv.global_draws(c, conf, seed, i, device) for i in range(n)]
+
+    def judged(bt, dr, **kw):
+        losses, trace, after, norms = ref_train.steps(weights, conf, bt, dr,
+                                                      **kw)
+        numbers, readings = single.check(conf, weights, batches, draws,
+                                         losses, trace, after)
+        readings["grad_norm"] = float(np.sqrt(sum(v * v
+                                                  for v in norms.values())))
+        return numbers, readings
+
+    numbers, readings = judged(batches, draws, tf32=True)
+    idx = torch.arange(b * world, device=device)
+    half = idx[idx % b < b // 2]
+    shifted = idx.clone()
+    shifted[b:2 * b] += 1
+    rank0 = idx < b
+    faults = {
+        "half_batch": judged([_rows(x, half) for x in batches],
+                             [_rows(d, half) for d in draws])[0],
+        "averaged": judged(batches, draws, grad_scale=1.0 / world)[0],
+        "shifted_shard": judged(batches, [_rows(d, shifted)
+                                          for d in draws])[0],
+        "no_exchange": {k: v for k, v in judged(batches, draws,
+                                                rows=rank0)[0].items()
+                        if k != "loss_gap"}}
+    return numbers, readings, faults
 
 
 def control_side(cell, group, weights, calib, images):
@@ -80,6 +137,13 @@ def run_control(name: str, seed: int, device, root=harness.ROOT,
         correct, checks = compare.judge(numbers, spec["limits"])
         return {"workload": name, "seed": seed, "correct": correct,
                 "checks": checks, "readings": readings}
+    if tr["mode"] == "train_dp":
+        numbers, readings, faults = train_dp_control(c, seed, device)
+        correct, checks = compare.judge(numbers, spec["limits"])
+        return {"workload": name, "seed": seed, "correct": correct,
+                "checks": checks, "grad_norm": readings["grad_norm"],
+                "faults": {k: compare.judge(v, spec["limits"])[1]
+                           for k, v in faults.items()}}
     group, rng, pool, weights, calib = detection.inputs(c, seed, device)
     n = (spec["compare_calls"] * spec["compare_images"]
          if tr["mode"] == "offline" else spec["compare_scenes"])

@@ -114,7 +114,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device
         attempted=images, failed=0,
         end_to_end={"images_per_s": images / window_s, "setup_s": setup_s},
         ctx=ctx, numbers=numbers, memory_peak_bytes=int(peak),
-        device_kind=kind, trace=tout["summary"])
+        device_kind=kind, traces=[tout["summary"]])
 
 
 def check(cell, group, weights, calib, kept, images, prog_scales, hw):

@@ -193,7 +193,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device
         end_to_end={"latency_p95_ms": _finite(_percentile(lat_ms, 95.0)),
                     "setup_s": setup_s},
         ctx=ctx, numbers=numbers, memory_peak_bytes=int(peak),
-        device_kind=kind, trace=tout["summary"])
+        device_kind=kind, traces=[tout["summary"]])
 
 
 def check(cell, group, weights, calib, kept, answers, prog_scales, hw):

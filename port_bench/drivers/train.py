@@ -157,7 +157,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device
         end_to_end={"train_images_per_s": done * b / window_s,
                     "setup_s": setup_s},
         ctx=ctx, numbers=numbers, memory_peak_bytes=int(peak),
-        device_kind=kind, trace=tout["summary"])
+        device_kind=kind, traces=[tout["summary"]])
 
 
 def check(conf, weights, batches, draws, losses, first_trace, after):

@@ -139,7 +139,13 @@ def catalog(root: Path = ROOT) -> Dict[str, List[str]]:
 class Outcome:
     """What a driver hands back: counts, the end-to-end values, what the
     per-layer readers read (``ctx``), the numbers compared and the
-    device's readings."""
+    device's readings.
+
+    ``count`` cards: ``memory_peak_bytes`` is the fullest card's peak and
+    ``traces`` holds one trace ``Summary`` a card (None without a trace).
+    The line's busy time and window are the cards' means, and its
+    breakdown, like the readers' ``ctx["trace"]``, is that of the card busy
+    longest; the readers find every card's in ``ctx["traces"]``."""
     attempted: int
     failed: int
     end_to_end: Dict[str, float]
@@ -147,7 +153,8 @@ class Outcome:
     numbers: Dict[str, float]
     memory_peak_bytes: int
     device_kind: str
-    trace: Optional[object] = None
+    traces: list = dataclasses.field(default_factory=list)
+    count: int = 1
 
 
 def merged(base: dict, over: Optional[dict]) -> dict:
@@ -163,8 +170,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     """Run one cell and return its result line (a dict). ``overrides``
     (tests) replace keys of the cell's files: ``config``, ``traffic``,
     ``spec``."""
-    from port_bench.reference.compare import judge
-
     c = cell(name, root)
     over = overrides or {}
     c.config = merged(c.config, over.get("config"))
@@ -172,22 +177,34 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     c.spec = merged(c.spec, over.get("spec"))
     res: Outcome = driver(c.traffic["mode"], root).run(
         c, int(seed), float(seconds), bool(trace), device)
+    return result_line(c, res, bool(trace), root)
+
+
+def result_line(c: Cell, res: Outcome, trace: bool, root: Path = ROOT
+                ) -> dict:
+    """The result line of a driver's ``Outcome``: the cell's end-to-end
+    metrics, or with ``trace`` its per-layer ones, the device, and the
+    numbers compared beside their limits (``checks``, last)."""
+    from port_bench.reference.compare import judge
+
     correct, checks = judge(res.numbers, c.spec["limits"])
-    summ = res.trace
+    traces = [t for t in res.traces if t is not None]
+    summ = max(traces, key=lambda t: t.busy_s()) if traces else None
     metrics = {}
     wanted = c.per_layer if trace else c.end_to_end
     for m in wanted:
-        v = (reader(m["name"], root)(dict(res.ctx, trace=summ)) if trace
+        v = (reader(m["name"], root)(dict(res.ctx, trace=summ,
+                                          traces=traces)) if trace
              else res.end_to_end.get(m["name"]))
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    dev = {"platform": "gpu", "kind": res.device_kind, "count": 1,
+    dev = {"platform": "gpu", "kind": res.device_kind, "count": res.count,
            "memory_peak_bytes": res.memory_peak_bytes}
     line = {"correct": correct, "attempted": res.attempted,
             "failed": res.failed, "metrics": metrics, "device": dev}
     if trace and summ is not None:
-        dev["busy_s"] = summ.busy_s()
-        dev["window_s"] = summ.window_s
+        dev["busy_s"] = sum(t.busy_s() for t in traces) / len(traces)
+        dev["window_s"] = sum(t.window_s for t in traces) / len(traces)
         line["breakdown"] = summ.breakdown()
     line["checks"] = checks
     return line

@@ -1,6 +1,7 @@
 """Device time of the convolutions and matrix products, forward and
 backward (cuDNN and cuBLAS kernels: profile_port.py's kinds ``conv``,
-``conv_backward`` and ``gemm``), per train step in the traced window, ms."""
+``conv_backward`` and ``gemm``), per train step in the traced window, ms;
+data-parallel: on the card busy longest."""
 
 from port_bench.trace import kernel_kind
 

@@ -1,9 +1,11 @@
 """The share of the traced window in which no operation ran on the card:
-1 - (union of the device's intervals) / window, in %."""
+1 - (union of the device's intervals) / window, in %; with more than one
+card, on the card where it is largest."""
 
 
 def read(ctx):
-    tr = ctx["trace"]
-    if tr is None or not tr.device:
+    traces = [t for t in ctx.get("traces") or [ctx["trace"]]
+              if t is not None and t.device]
+    if not traces:
         return None
-    return 100.0 * (1.0 - tr.busy_s() / tr.window_s)
+    return max(100.0 * (1.0 - t.busy_s() / t.window_s) for t in traces)

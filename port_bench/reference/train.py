@@ -182,7 +182,11 @@ def ohem(sq, pos, ign, rnd, loss: dict) -> torch.Tensor:
 
 
 def loss_of(params: Dict[str, torch.Tensor], conf: dict, images, boxes,
-            valid, draws, tf32: bool = False) -> Tuple[torch.Tensor, dict]:
+            valid, draws, tf32: bool = False, rows=None
+            ) -> Tuple[torch.Tensor, dict]:
+    """The step's loss. ``rows`` (a control's planted fault), a (B,) bool
+    mask: only those rows' terms are summed, over the whole batch's
+    counts (one rank's share of a data-parallel loss)."""
     label, lcfg, model = conf["label"], conf["loss"], conf["model"]
     with torch.no_grad():
         x, tb, tv = patches(images, boxes, valid, label, draws["patches"],
@@ -198,6 +202,9 @@ def loss_of(params: Dict[str, torch.Tensor], conf: dict, images, boxes,
         mask = ohem(sq.detach(), (score > 0.5).reshape(b, -1),
                     (ign > 0.5).reshape(b, -1), draws["ohem_score"], lcfg)
     n_s, n_l = mask.sum().double().float(), score.sum().double().float()
+    if rows is not None:
+        mask = mask & rows[:, None]
+        score = score * rows[:, None, None, None]
     cls = (sq * mask).sum() / n_s.clamp(min=1.0)
     lsq = ((out["loc"] - loc) ** 2).sum(dim=-1, keepdim=True)
     locl = (lsq * score).sum() / n_l.clamp(min=1.0)
@@ -224,11 +231,14 @@ def sgd(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
 
 
 def steps(weights: Dict[str, torch.Tensor], conf: dict,
-          batches: List[dict], draws: List[dict], tf32: bool = False):
+          batches: List[dict], draws: List[dict], tf32: bool = False,
+          rows=None, grad_scale: float = 1.0):
     """Run ``len(batches)`` steps from ``weights`` (float32; with ``tf32``
     the products in TF32, the control). Returns the losses, the momentum
     trace after the first step, the parameters after the last, and the
-    gradient norms of the first step by leaf."""
+    gradient norms of the first step by leaf. ``rows`` (``loss_of``) and
+    ``grad_scale``, the gradients' factor before the update, plant a
+    control's faults."""
     params = {k: v.detach().float().clone().requires_grad_(True)
               for k, v in weights.items()}
     trace = {k: torch.zeros_like(v) for k, v in params.items()}
@@ -236,9 +246,9 @@ def steps(weights: Dict[str, torch.Tensor], conf: dict,
     for i, (bt, dr) in enumerate(zip(batches, draws)):
         with full_f32(tf32):
             loss, _ = loss_of(params, conf, bt["image"], bt["boxes"],
-                              bt["box_valid"], dr, tf32)
+                              bt["box_valid"], dr, tf32, rows)
             grads = torch.autograd.grad(loss, list(params.values()))
-        grads = dict(zip(params, grads))
+        grads = {k: g * grad_scale for k, g in zip(params, grads)}
         if i == 0:
             grad_norms = {k: float(torch.linalg.vector_norm(g))
                           for k, g in grads.items()}

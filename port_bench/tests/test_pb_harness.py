@@ -29,8 +29,10 @@ def test_every_cell_reports_setup_another_end_to_end_metric_and_a_layer():
         names = {m["name"] for m in c.end_to_end}
         assert "setup_s" in names and len(names) >= 2
         assert c.per_layer
+        # an exact comparison (rank_gap) has the limit 0
         assert c.spec["limits"] and all(
-            isinstance(v, float) and v > 0 for v in c.spec["limits"].values())
+            isinstance(v, float) and v >= 0
+            for v in c.spec["limits"].values())
 
 
 def test_a_new_cell_config_and_metric_are_found_by_their_files(tmp_path):
