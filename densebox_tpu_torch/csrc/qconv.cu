@@ -50,10 +50,11 @@
 //     leaves as 16-byte stores along Cout. Where a pixel's Cout values are
 //     not whole 16-byte units (Cout 1, 5, ...) it stores scalars, masked.
 // Cin that is not a multiple of 16 (the paper's conv1_1, Cin 3; the refine
-// branch's first conv, Cin 5 or 6) cannot take 16-byte copies and is a
-// fraction of a per cent of any model's work: it keeps the __dp4a kernel on
-// the CUDA cores. The choice is a rule of (Cin, Cout) alone, mirrored by
-// ops/kernels/qconv.py:kernel_variant and reported back at every launch.
+// branch's first conv, Cin 1 + the landmarks: 5, 6 or 9) cannot take
+// 16-byte copies and is a fraction of a per cent of any model's work: it
+// keeps the __dp4a kernel on the CUDA cores. The choice is a rule of (Cin,
+// Cout) alone, mirrored by ops/kernels/qconv.py:kernel_variant and reported
+// back at every launch.
 // One C call is one launch; it does not synchronise.
 
 #include <cuda_runtime.h>

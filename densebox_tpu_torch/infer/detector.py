@@ -30,6 +30,7 @@ from densebox_tpu_torch.ops.decode import decode_topk, div, rdiv, topk_stable
 from densebox_tpu_torch.ops.nms import nms
 from densebox_tpu_torch.ops.window import gather_windows
 from densebox_tpu_torch.utils.constants import constant_cache
+from densebox_tpu_torch.utils.logging import new_span_id, span, spans_under
 
 # per-scale model outputs with that scale's (sx, sy) factors
 Levels = List[Tuple[Dict[str, torch.Tensor], Tuple[float, float]]]
@@ -432,16 +433,26 @@ def detect_from_maps(levels: Levels, image_hw: Tuple[int, int],
     """Everything of ``detect_batch`` after the forward, on the maps'
     device: decode, concat, cap, NMS and, when the maps hold ``lm``, the
     landmark decode of the top ``lm_topk`` detections."""
-    boxes, scores, valid, src = candidates(levels, image_hw, infer_cfg,
-                                           label_cfg)
-    boxes, scores, valid, kept = nms(boxes, scores, valid,
-                                     iou_thresh=infer_cfg.nms_iou,
-                                     max_out=infer_cfg.max_dets,
-                                     return_idx=True)
+    with span("detect.boxes"):
+        boxes, scores, valid, src = candidates(levels, image_hw, infer_cfg,
+                                               label_cfg)
+        boxes, scores, valid, kept = nms(boxes, scores, valid,
+                                         iou_thresh=infer_cfg.nms_iou,
+                                         max_out=infer_cfg.max_dets,
+                                         return_idx=True)
     result = {"boxes": boxes, "scores": scores, "valid": valid}
     if "lm" not in levels[0][0]:
         return result
+    with span("detect.landmarks"):
+        result["lm_points"], result["lm_valid"] = _landmarks(
+            levels, boxes, valid, src, kept, infer_cfg, label_cfg)
+    return result
 
+
+def _landmarks(levels: Levels, boxes, valid, src, kept,
+               infer_cfg: InferCfg, label_cfg: LabelCfg):
+    """``detect_from_maps``'s landmark decode of the top ``lm_topk``
+    detections: (lm_points (B, max_dets, L, 2), lm_valid (B, max_dets, L))."""
     ld = getattr(torch, resolved_lm_dtype(infer_cfg))
     lm_maps = [(out["lm"].to(ld), xy) for out, xy in levels]
     num_lm = lm_maps[0][0].shape[-1]
@@ -467,9 +478,7 @@ def detect_from_maps(levels: Levels, image_hw: Tuple[int, int],
                                             + pts.shape[2:])], dim=1)
         lm_ok = torch.cat([lm_ok, lm_ok.new_zeros((lm_ok.shape[0], pad)
                                                   + lm_ok.shape[2:])], dim=1)
-    result["lm_points"] = pts
-    result["lm_valid"] = lm_ok
-    return result
+    return pts, lm_ok
 
 
 def detect_batch(model, images: torch.Tensor, infer_cfg: InferCfg,
@@ -480,9 +489,17 @@ def detect_batch(model, images: torch.Tensor, infer_cfg: InferCfg,
     max_dets) and, for a landmark model, lm_points (B, max_dets, L, 2) and
     lm_valid (B, max_dets, L). ``infer_cfg.nms_backend``, ``lm_backend`` and
     ``lm_window_dp`` are TPU policies and not read: on the card NMS and the
-    window gather are always the CUDA kernels."""
-    return detect_from_maps(pyramid_maps(model, images, infer_cfg),
-                            tuple(images.shape[1:3]), infer_cfg, label_cfg)
+    window gather are always the CUDA kernels.
+
+    Spans (``utils/logging.py``'s ring), each under the call's own id:
+    ``detect.pyramid`` (resize and forward at every scale; the model's
+    ``model.refine`` inside it), ``detect.boxes`` (candidates and NMS) and
+    ``detect.landmarks`` (the landmark decode with the window gather)."""
+    with spans_under(new_span_id()):
+        with span("detect.pyramid"):
+            levels = pyramid_maps(model, images, infer_cfg)
+        return detect_from_maps(levels, tuple(images.shape[1:3]), infer_cfg,
+                                label_cfg)
 
 
 def make_detect_fn(model, infer_cfg: InferCfg, label_cfg: LabelCfg):

@@ -34,6 +34,7 @@ from densebox_tpu_torch.ops.decode import div
 from densebox_tpu_torch.ops.upsample import (  # noqa: F401
     _interp_matrix, interp_bmm, interp_matrix_align_corners,
     upsample2x_align_corners)
+from densebox_tpu_torch.utils.logging import span
 
 # (kind, name, base_width): the paper trunk, VGG19 through conv4_4.
 TRUNK_PLAN = (
@@ -212,7 +213,9 @@ class DenseBox(nn.Module):
 
     Call with NHWC images (H, W divisible by ``cfg.min_divisor``); returns a
     dict of stride-4 NHWC float32 maps: ``score`` (B, H/4, W/4, 1), ``loc``
-    (..., 4) and, with landmarks, ``lm`` (..., L) and ``refined`` (..., 1).
+    (..., 4) and, with landmarks, ``lm`` (..., L) and ``refined`` (..., 1);
+    the refine branch runs under a ``model.refine`` span
+    (``utils/logging.py``).
     ``train=True`` applies dropout (rate ``cfg.dropout_rate``) to the heads'
     hidden tensor, from ``generator`` (a ``torch.Generator`` on the images'
     device) or from a given bool ``dropout_keep`` mask of shape
@@ -342,9 +345,10 @@ class DenseBox(nn.Module):
             lm = z[..., 5:5 + cfg.num_landmarks]
             out["lm"] = lm.float()
             if cfg.use_refine:
-                r = torch.cat([score, lm], dim=-1).permute(0, 3, 1, 2)
-                r = torch.relu(self._conv(self.refine_conv1, r))
-                r = torch.relu(self._conv(self.refine_conv2, r))
-                out["refined"] = self._conv(self.refine_out, r).permute(
-                    0, 2, 3, 1).float()
+                with span("model.refine"):
+                    r = torch.cat([score, lm], dim=-1).permute(0, 3, 1, 2)
+                    r = torch.relu(self._conv(self.refine_conv1, r))
+                    r = torch.relu(self._conv(self.refine_conv2, r))
+                    out["refined"] = self._conv(self.refine_out, r).permute(
+                        0, 2, 3, 1).float()
         return out

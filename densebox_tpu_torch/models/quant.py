@@ -44,6 +44,7 @@ from densebox_tpu_torch.ops.kernels.requant import (channel_vector,
                                                     requant_epilogue)
 from densebox_tpu_torch.ops.upsample import upsample2x_align_corners
 from densebox_tpu_torch.utils.constants import is_plain
+from densebox_tpu_torch.utils.logging import span
 
 BACKENDS = ("fused", "hybrid", "xla")
 
@@ -193,7 +194,8 @@ class QuantDenseBox(nn.Module):
 
     Call with NHWC float images (H, W divisible by ``cfg.min_divisor``);
     returns a dict of stride-4 NHWC float32 maps: ``score``, ``loc`` and,
-    with landmarks, ``lm`` and ``refined``. State names follow the JAX
+    with landmarks, ``lm`` and ``refined``; the refine branch runs under a
+    ``model.refine`` span (``utils/logging.py``). State names follow the JAX
     qparams tree with '.' for '/' (``det.det_conv1.w_q``, ``f4_scale``).
     All state is buffers; the module has no parameters. Built on the card
     unless ``device`` names another device.
@@ -329,11 +331,12 @@ class QuantDenseBox(nn.Module):
             lm = head("lm")
             out["lm"] = lm.float()
             if cfg.use_refine:
-                r = torch.cat([out["score"].to(GLUE), lm], dim=-1)
-                r = self._conv_xla(r, "refine_conv1")
-                r = self._conv_xla(r, "refine_conv2")
-                out["refined"] = self._conv_xla(r, "refine_out",
-                                                relu=False).float()
+                with span("model.refine"):
+                    r = torch.cat([out["score"].to(GLUE), lm], dim=-1)
+                    r = self._conv_xla(r, "refine_conv1")
+                    r = self._conv_xla(r, "refine_conv2")
+                    out["refined"] = self._conv_xla(r, "refine_out",
+                                                    relu=False).float()
         return out
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -378,10 +381,12 @@ class QuantDenseBox(nn.Module):
         if cfg.num_landmarks:
             lm = out["lm"] = head("lm")
             if cfg.use_refine:
-                r = torch.cat([out["score"].to(GLUE), lm.to(GLUE)], dim=-1)
-                r_q = quant_act(r, in_scale["refine_conv1"])
-                r_q = self._conv(r_q, "refine_conv1", "refine_conv2")
-                r_q = self._conv(r_q, "refine_conv2", "refine_out")
-                out["refined"] = self._conv(r_q, "refine_out", None,
-                                            relu=False)
+                with span("model.refine"):
+                    r = torch.cat([out["score"].to(GLUE), lm.to(GLUE)],
+                                  dim=-1)
+                    r_q = quant_act(r, in_scale["refine_conv1"])
+                    r_q = self._conv(r_q, "refine_conv1", "refine_conv2")
+                    r_q = self._conv(r_q, "refine_conv2", "refine_out")
+                    out["refined"] = self._conv(r_q, "refine_out", None,
+                                                relu=False)
         return out

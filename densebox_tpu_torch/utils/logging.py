@@ -13,7 +13,9 @@ Spans: ``record_span`` keeps ``(name, start_ns, end_ns, id, parent)`` in one
 process-wide ring of the last ``SPAN_RING`` spans, always on (two clock
 reads and a locked append a span: no exporter, no file, no switch).
 ``spans_between`` reads the spans that overlap a window and
-``spans_dropped`` says whether the ring lost any. The clock is
+``spans_dropped`` says whether the ring lost any. ``span`` records a block
+under the id that the innermost ``spans_under`` names (``detect_batch``
+names its call's id, so the model's spans inside it nest there). The clock is
 ``time.time_ns()``, which is also ``torch.profiler``'s host clock (Unix
 epoch ns), so a span lines up with a profiler trace as it is. Spans take
 no ``torch.profiler`` annotation: on CUDA every ``record_function`` range
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import itertools
 import os
 import threading
@@ -122,6 +125,33 @@ def record_span(name: str, start_ns: int, end_ns: int,
             _DROPPED[0] += 1
             _DROPPED[1] = max(_DROPPED[1], _RING[0][2])
         _RING.append((name, start_ns, end_ns, id, parent))
+
+
+_PARENT: "contextvars.ContextVar[Optional[int]]" = contextvars.ContextVar(
+    "densebox_span_parent", default=None)
+
+
+@contextlib.contextmanager
+def spans_under(parent: int):
+    """``span`` blocks inside this one (in this thread or task) name
+    ``parent`` as their parent."""
+    token = _PARENT.set(parent)
+    try:
+        yield
+    finally:
+        _PARENT.reset(token)
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """Keep the block as a span on the host clock, under the innermost
+    ``spans_under`` id (None outside one). It marks when the host issued
+    the block's work; the card may run it later."""
+    t0 = time.time_ns()
+    try:
+        yield
+    finally:
+        record_span(name, t0, time.time_ns(), None, _PARENT.get())
 
 
 def spans_between(lo_ns: int, hi_ns: int) -> List[Span]:

@@ -1,7 +1,7 @@
 """The int8 conv of the port at the widths its models really run, on the CPU.
 
 * ``kernel_variant`` names a variant of ``csrc/qconv.cu`` for every conv of
-  the four models the port serves, and the tensor-core one whenever Cin is a
+  the five models the port serves, and the tensor-core one whenever Cin is a
   multiple of 16.
 * ``qconv_reference`` against the JAX package's ``qconv_reference`` at every
   distinct (Cin, Cout, k) of those models, on a small map whose height and
@@ -41,6 +41,9 @@ MODELS = {
     "malf_face": malf_face().model,
     "turbo": TURBO,
     "turbo_lm4": dataclasses.replace(TURBO, num_landmarks=4, use_refine=True),
+    # the paper's car detector with 8 landmarks and the refine branch
+    "kitti_vehicle_lm8": dataclasses.replace(kitti_vehicle().model,
+                                             num_landmarks=8, use_refine=True),
 }
 
 
@@ -80,6 +83,7 @@ def test_kernel_variant_covers_model(name):
     (512, 5, 1, "mma_n8"), (16, 9, 3, "mma_n16"), (768, 512, 1, "mma_n128"),
     (80, 130, 3, "mma_n128"), (3, 64, 3, "dp4a_n64"), (6, 64, 3, "dp4a_n64"),
     (5, 24, 3, "dp4a_n32"), (5, 4, 3, "dp4a_n16"), (24, 200, 1, "dp4a_n64"),
+    (9, 64, 3, "dp4a_n64"), (512, 8, 1, "mma_n8"),
 ])
 def test_kernel_variant_rule(cin, cout, k, want):
     assert kernel_variant(cin, cout, k) == want

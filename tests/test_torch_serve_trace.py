@@ -1,7 +1,8 @@
 """DetectServer's spans and counters (``serve.py``) and the span ring they
 go to (``utils/logging.py``), on the CPU at a tiny size: ``stats`` stays a
 dict of flat numbers that add up, every device call and request leaves
-its spans in order, warm-up leaves none, the ring stays bounded and
+its spans in order (and its detect call its stages), warm-up leaves none
+of the server's, the ring stays bounded and
 counts what it drops, its clock is the profiler's, and nothing of the
 detect path adds a profiler annotation.
 """
@@ -112,6 +113,13 @@ def test_stats_are_flat_numbers_that_add_up(served):
 
 def test_each_call_and_request_leaves_its_spans(served):
     _, stats, spans, _ = served
+    # detect_batch's own stages, each under its call's id
+    detect_calls = collections.defaultdict(dict)
+    for name, t0, t1, sid, parent in spans:
+        if name.startswith("detect."):
+            assert sid is None and parent is not None
+            detect_calls[parent][name] = (t0, t1)
+    spans = [s for s in spans if not s[0].startswith("detect.")]
     calls = collections.defaultdict(dict)
     requests = collections.defaultdict(dict)
     for name, t0, t1, sid, parent in spans:
@@ -136,6 +144,17 @@ def test_each_call_and_request_leaves_its_spans(served):
         q0, q1, same_call = r["serve.queue"]
         assert same_call == call and call in calls
         assert lb1 <= q0 <= q1 <= calls[call]["serve.window"][1]
+    # one detect call a device call and the warm-up's, its stages in order
+    # and, but for the warm-up's, inside the device call's serve.detect
+    assert len(detect_calls) == stats["device_calls"] + 1
+    served_in = 0
+    for st in detect_calls.values():
+        assert tuple(st) == ("detect.pyramid", "detect.boxes")
+        assert st["detect.pyramid"][1] <= st["detect.boxes"][0]
+        served_in += any(c["serve.detect"][0] <= st["detect.pyramid"][0]
+                         and st["detect.boxes"][1] <= c["serve.detect"][1]
+                         for c in calls.values())
+    assert served_in == stats["device_calls"]
     # each counter is its spans' sum
     for name, key in (("serve.detect", "detect_s"),
                       ("serve.queue", "queue_wait_s")):
@@ -147,10 +166,11 @@ def test_warmup_is_not_counted_and_leaves_no_span(model, ring):
     server = _server(model, warmup=True)
     try:
         assert all(v == 0 for v in server.stats.values()), server.stats
-        assert len(ring) == 0
+        # the server's none; the warm-up's detect call leaves its own
+        assert [s[0] for s in ring] == ["detect.pyramid", "detect.boxes"]
     finally:
         server.close()
-    assert len(ring) == 0 and all(v == 0 for v in server.stats.values())
+    assert len(ring) == 2 and all(v == 0 for v in server.stats.values())
 
 
 def test_ring_stays_bounded_and_counts_what_it_drops(monkeypatch):
