@@ -662,7 +662,10 @@ def phase_forward():
 # then the edges of the kernel's variants: W=33 and Cin=5 (the CUDA-core
 # variant), Cout 1 and 5 (masked scalar stores), Cin 6 (refine_conv1), Cin
 # 768 (the paper's head conv1: weights streamed in chunks, at a small map),
-# a map whose height and width are no multiple of the 8x16 tile, and B=1
+# a map whose height and width are no multiple of the 8x16 tile, and B=1;
+# then kitti's offline launches at B=64 (the warpgroup variant), timed
+# against their least time in KITTI_OFFLINE (the reference is checked on
+# their first two images)
 QCONV_CASES = [
     ("turbo_conv1_1", 8, 120, 160, 48, 16, 3),
     ("turbo_conv1_2", 8, 120, 160, 16, 16, 3),
@@ -683,7 +686,13 @@ QCONV_CASES = [
     ("paper_head_conv1", 1, 30, 40, 768, 512, 1),
     ("off_tile", 2, 27, 45, 64, 64, 3),
     ("batch_1", 1, 120, 160, 64, 64, 3),
+    ("kitti_conv2_2", 64, 240, 320, 128, 128, 3),
+    ("kitti_conv3_2", 64, 120, 160, 256, 256, 3),
+    ("kitti_conv4_2", 64, 60, 80, 512, 512, 3),
+    ("kitti_head_conv1", 64, 120, 160, 768, 512, 1),
 ]
+KITTI_OFFLINE = ("kitti_conv2_2", "kitti_conv3_2", "kitti_conv4_2",
+                 "kitti_head_conv1")
 # how often a device call of the turbo int8 model launches each timed shape
 # (conv3_2 = conv3_3, conv4_2 = conv4_3, det and loc conv1): 14 in all; the
 # output mode it is timed in is the model's (f32 from the heads' conv2)
@@ -715,7 +724,7 @@ def phase_qconv():
     from densebox_tpu_torch.ops.kernels import qconv as kq
 
     rng = np.random.RandomState(5)
-    results, err, layers, row2 = [], 0.0, {}, None
+    results, err, layers, row2, kitti = [], 0.0, {}, None, {}
     for name, *shape in QCONV_CASES:
         b, h, w, cin, cout, k = shape
         x, wq, scale, bias, osc = qconv_inputs(rng, *shape, "cuda")
@@ -723,10 +732,11 @@ def phase_qconv():
                  "int32": dict(out="int32")}
         variant = kq.kernel_variant(cin, cout, k)
         row = {"case": name, "shape": shape, "variant": variant}
+        rows = 2 if name in KITTI_OFFLINE else b
         for mode, kw in modes.items():
             kq.reset_launches()
-            got = kq.qconv_int8(x, wq, scale, bias, **kw)
-            want = kq.qconv_reference(x, wq, scale, bias, **kw)
+            got = kq.qconv_int8(x, wq, scale, bias, **kw)[:rows]
+            want = kq.qconv_reference(x[:rows], wq, scale, bias, **kw)
             torch.cuda.synchronize()
             diff = float((got.double() - want.double()).abs().max())
             row[mode] = {"equal": bool(torch.equal(got, want)),
@@ -740,6 +750,17 @@ def phase_qconv():
                                      f"variant ({name}, {mode})")
         row["plan"] = dict(kq.last_plan)
         results.append(row)
+        if name in KITTI_OFFLINE:
+            # the offline chain's mode (int8 codes on), port_bench's bytes
+            bnd = bound(b * h * w * (cin + cout) + wq.numel() + 12 * cout,
+                        2 * b * h * w * cin * cout * k * k, "int8")
+            ms = device_ms(lambda: kq.qconv_int8(x, wq, scale, bias, osc),
+                           launches=5)
+            kitti[name] = {"variant": variant, "plan": row["plan"],
+                           "kernel_ms": ms, "bound_ms": bnd[0],
+                           "bound_by": bnd[1],
+                           "roofline_share_pct": 100.0 * bnd[0] / ms}
+            continue
         if name not in TURBO_LAUNCHES:
             continue
         # the mode the model runs this layer in; int8 in, weights, three
@@ -766,6 +787,10 @@ def phase_qconv():
             layers[name]["kernel_event_ms"] = median_ms(
                 lambda: kq.qconv_int8(*args, **kw), 50)
     emit({"phase": "qconv_kernel", "results": results, "max_abs_err": err})
+    emit({"phase": "qconv_kitti_offline", "batch": 64,
+          "timing": "device time: 5 launches replayed as a CUDA graph "
+                    "between one pair of events, median of 5",
+          "layers": kitti})
     per_call = {key: sum(v[key] * v["launches_per_call"]
                          for v in layers.values())
                 for key in ("kernel_ms", "bound_ms", "library_bf16_conv_ms")}
@@ -1382,7 +1407,8 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
     shapes = conv_shapes(model_cfg) if quant else {}
     n_conv = len(shapes)
     # each conv on the variant its widths name: the tensor cores whenever
-    # Cin is a multiple of 16 (every conv of the turbo model)
+    # Cin is a multiple of 16 (every conv of the turbo model), through
+    # wgmma where Cin is a multiple of 32 and Cout at least 64
     want_variants = {}
     for cout, cin, k, _ in shapes.values():
         v = kq.kernel_variant(cin, cout, k)
@@ -1421,7 +1447,7 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
                              f"{want} {want_variants}")
     # (the lm4 model's refine_conv1 has Cin 5 and stays on the CUDA cores)
     if name in ("serve_turbo_int8_fused", "serve_turbo_int8_hybrid") and \
-            not all(v.startswith("mma") for v in variants):
+            not all(v.startswith(("mma", "wgmma")) for v in variants):
         raise AssertionError(f"{name}: a conv of the turbo model left the "
                              f"tensor-core variant: {variants}")
     return launches
@@ -3329,7 +3355,7 @@ def phase_export():
                                      f"detect of their image alone")
             if art_launches != want_launches or live_launches != \
                     want_launches or art_variants != live_variants or (
-                    quant and not all(v.startswith("mma")
+                    quant and not all(v.startswith(("mma", "wgmma"))
                                       for v in art_variants)):
                 raise AssertionError(
                     f"export {name}: launches {art_launches} {art_variants}, "

@@ -25,11 +25,14 @@ the JAX package's HWIO. The wrapper turns ``scale``, ``bias`` and
 under ``torch.export`` it is one node whose fake rule gives the output's
 shape and, by mode, its dtype.
 
-The CUDA source holds two variants and one rule that picks between them,
-``kernel_variant``: the int8 tensor cores (``mma``) whenever Cin is a
-multiple of 16, the CUDA cores (``dp4a``) otherwise. The C side reports the
-variant it took at every launch; the wrapper holds it against the rule and
-counts launches per variant in ``variant_launches``.
+The CUDA source holds three variants and one rule that picks between them,
+``kernel_variant``: the warpgroup variant (``wgmma``: TMA-fed, warp
+specialised, Hopper's ``wgmma``) where Cin is a multiple of 32 and Cout at
+least 64, the paper's widths; the int8 tensor cores through ``mma.sync``
+(``mma``) at the other widths whose Cin is a multiple of 16; the CUDA
+cores (``dp4a``) otherwise. The C side reports the variant it took at every
+launch; the wrapper holds it against the rule and counts launches per
+variant in ``variant_launches``.
 """
 
 from __future__ import annotations
@@ -52,14 +55,18 @@ launches = 0
 # The same launches by variant name (``kernel_variant``).
 variant_launches: Dict[str, int] = {}
 # What the C side chose at the last launch: variant, and for the
-# tensor-core variant the channels per chunk, whether the weights stayed in
+# tensor-core variants the channels per chunk, whether the weights stayed in
 # shared memory, the grid's x size, the dynamic shared memory in bytes and
-# the depth of the ring of stages.
+# the depth of the (input) ring of stages; for ``wgmma`` also the depth of
+# the weights' ring and the output pixels a block (``tile_pixels``).
 last_plan: Dict[str, object] = {}
 
+WGMMA_CHANNEL_BLOCKS = (64, 128)
 MMA_CHANNEL_BLOCKS = (8, 16, 32, 64, 128)
 DP4A_CHANNEL_BLOCKS = (16, 32, 64)
-ALIGNMENT = 16      # bytes, of x, w and the output for the tensor-core variant
+ALIGNMENT = 16      # bytes, of x, w and the output for the tensor-core variants
+SMEM_BYTES = 232448  # shared memory a block may use on sm_90
+_PATHS = ("dp4a", "mma", "wgmma")   # the C side's path numbers
 
 
 def reset_launches() -> None:
@@ -70,18 +77,42 @@ def reset_launches() -> None:
 
 def kernel_variant(cin: int, cout: int, k: int) -> str:
     """The variant of ``csrc/qconv.cu`` that a conv of these widths runs on,
-    as ``"<path>_n<channel block>"``: ``mma`` (int8 tensor cores) whenever
-    Cin is a multiple of 16, else ``dp4a`` (CUDA cores); the channel block
-    is the smallest of the path's blocks that holds Cout (the largest above
-    that). Mirrors ``channel_block`` in the source; the kernel size does not
-    enter the rule."""
+    as ``"<path>_n<channel block>"``: ``wgmma`` where Cin is a multiple of
+    32 and Cout at least 64 (block 64 at Cout 64, else 128); else ``mma``
+    (int8 tensor cores) whenever Cin is a multiple of 16, with the smallest
+    block that holds Cout (the largest above that); else ``dp4a`` (CUDA
+    cores), the same way. Mirrors ``path_of`` and ``channel_block`` in the
+    source; neither the kernel size nor the map's size enters the rule."""
     if k not in (1, 3) or cin < 1 or cout < 1:
         raise ValueError(f"kernel_variant: want k in (1, 3) and positive "
                          f"widths, got cin={cin}, cout={cout}, k={k}")
-    path, blocks = (("mma", MMA_CHANNEL_BLOCKS) if cin % 16 == 0
-                    else ("dp4a", DP4A_CHANNEL_BLOCKS))
+    if cin % 32 == 0 and cout >= 64:
+        path, blocks = "wgmma", WGMMA_CHANNEL_BLOCKS
+    elif cin % 16 == 0:
+        path, blocks = "mma", MMA_CHANNEL_BLOCKS
+    else:
+        path, blocks = "dp4a", DP4A_CHANNEL_BLOCKS
     block = next((n for n in blocks if cout <= n), blocks[-1])
     return f"{path}_n{block}"
+
+
+def wgmma_plan(cin: int, cout: int, k: int) -> Dict[str, object]:
+    """How the ``wgmma`` variant cuts a conv of these widths (mirrors
+    ``launch_wg`` in the source): ``weights_resident`` where a block's
+    weights for all taps and all of Cin fit in shared memory beside two
+    input stages (short K: the weights load once a block, and each consumer
+    warpgroup takes its own 128-pixel tiles, 8 x 16 at 3x3, so that one's
+    epilogue overlaps the other's products); else the weights stream and
+    both warpgroups share tiles of 256 pixels (16 x 16 at 3x3)."""
+    nblk = 64 if cout <= 64 else 128
+    kc = 128 if cin % 128 == 0 else 64 if cin % 64 == 0 else 32
+    # the block's shared memory less alignment, barriers, the int8 codes'
+    # staging and the epilogue constants
+    room = SMEM_BYTES - 1024 - 512 - 8 * 16 * (nblk + 16) - 24 * nblk
+    a_tx = 24 * 10 * kc if k == 3 else 128 * kc     # an 8-row input stage
+    resident = k * k * cin * nblk + 2 * -(-a_tx // 1024) * 1024 <= room
+    return {"weights_resident": resident,
+            "tile_pixels": 128 if resident else 256}
 
 
 def conv_accumulator(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -168,8 +199,8 @@ def _qconv_cuda(x, w, scale, bias, out_scale, relu, out):
         raise ValueError(f"qconv_int8: want 1 <= B <= 65535 and a nonempty "
                          f"image, got {tuple(x.shape)}")
     variant = kernel_variant(cin, cout, k)
-    if variant.startswith("mma") and (x.data_ptr() % ALIGNMENT
-                                      or w.data_ptr() % ALIGNMENT):
+    if not variant.startswith("dp4a") and (x.data_ptr() % ALIGNMENT
+                                           or w.data_ptr() % ALIGNMENT):
         raise ValueError(f"qconv_int8: with Cin a multiple of 16, x and w "
                          f"must be {ALIGNMENT}-byte aligned (a view that "
                          f"starts inside a tensor may not be: clone it)")
@@ -185,7 +216,7 @@ def _qconv_cuda(x, w, scale, bias, out_scale, relu, out):
     def ptr(name):
         return vec[name].data_ptr() if name in vec else None
 
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 9)()
     with torch.cuda.device(x.device):
         rc = _launcher()(
             x.data_ptr(), w.data_ptr(), ptr("scale"), ptr("bias"),
@@ -195,7 +226,7 @@ def _qconv_cuda(x, w, scale, bias, out_scale, relu, out):
     if rc != 0:
         raise RuntimeError(f"qconv_int8: kernel launch failed with CUDA "
                            f"error {rc}")
-    took = f"{'mma' if info[0] else 'dp4a'}_n{info[1]}"
+    took = f"{_PATHS[info[0]]}_n{info[1]}"
     if took != variant:
         raise RuntimeError(f"qconv_int8: the kernel took variant {took}, "
                            f"kernel_variant names {variant}")
@@ -206,6 +237,8 @@ def _qconv_cuda(x, w, scale, bias, out_scale, relu, out):
     last_plan.update(variant=variant, chunk_channels=info[2],
                      weights_resident=bool(info[3]), grid_x=info[4],
                      shared_bytes=info[5], stages=info[6])
+    if variant.startswith("wgmma"):
+        last_plan.update(weight_stages=info[7], tile_pixels=info[8])
     return y
 
 
@@ -219,7 +252,7 @@ def qconv_int8(x: torch.Tensor, w: torch.Tensor, scale, bias,
     ``x`` int8 (B, H, W, Cin) and ``w`` int8 (Cout, k, k, Cin), k in {1, 3},
     both contiguous on one card; ``scale``, ``bias`` and ``out_scale``
     float32 scalars or (Cout,) vectors. With Cin a multiple of 16 (the
-    tensor-core variant) ``x`` and ``w`` must start on a 16-byte boundary.
+    tensor-core variants) ``x`` and ``w`` must start on a 16-byte boundary.
     Anything else raises, and so does a refused launch or a variant other
     than ``kernel_variant`` names. Each launch adds one to ``launches`` and
     to its variant's entry of ``variant_launches``."""

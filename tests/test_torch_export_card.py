@@ -134,7 +134,8 @@ def test_artifact_on_the_card_equals_live(cuda, tmp_path):
         torch.cuda.synchronize()
         after = _launches()
         assert {k: after[k] - before[k] for k in after} == per_call
-        assert all(v.startswith("mma") for v in kqconv.variant_launches)
+        assert all(v.startswith(("mma", "wgmma"))
+                   for v in kqconv.variant_launches)
         assert set(got) == set(want)
         for k in want:
             assert torch.equal(got[k], want[k]), (i, k)

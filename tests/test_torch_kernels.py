@@ -234,7 +234,7 @@ def qconv_case(seed, b, h, w, cin, cout, k):
 
 # (B, H, W, Cin, Cout, k): aligned and ragged tiles (W=33, H not a multiple
 # of the 8-row tile), channel tails on the CUDA-core variant (Cin 3, 5, 6),
-# every channel block of both variants (Cout 1, 4, 5, 16, 32, 64 and 130),
+# every channel block of the variants (Cout 1, 4, 5, 16, 32, 64 and 130),
 # Cin that is 16 but not 32 channels past a k32 step (48, 72, 80), weights
 # resident with the input in 64-channel chunks (144, 192), weights streamed
 # in chunks (256 and 512 at 3x3, 768 at 1x1), a map that is no multiple of
@@ -265,7 +265,9 @@ def test_qconv_kernel_matches_plain_version(cuda, shape, mode):
     assert kqconv.launches == 1
     assert kqconv.variant_launches == {variant: 1}
     assert kqconv.last_plan["variant"] == variant
-    assert variant.startswith("mma" if shape[3] % 16 == 0 else "dp4a")
+    cin, cout = shape[3:5]
+    assert variant.startswith("wgmma_" if cin % 32 == 0 and cout >= 64
+                              else "mma_" if cin % 16 == 0 else "dp4a_")
     want = kqconv.qconv_reference(x, wq, scale, bias, osc,
                                   relu=mode != "f32", **kw)
     assert got.dtype == want.dtype == {"int8": torch.int8, "f32": torch.float32,
@@ -275,23 +277,63 @@ def test_qconv_kernel_matches_plain_version(cuda, shape, mode):
 
 @pytest.mark.gpu
 def test_qconv_kernel_plans(cuda):
-    """What the C side reports of its plan: weights resident at the narrow
-    models' widths and streamed in chunks at the paper's, a ring of at
-    least two stages, persistent blocks no more than there are tiles."""
-    for shape, resident in [((8, 120, 160, 64, 64, 3), True),
-                            ((8, 60, 80, 128, 128, 3), True),
-                            ((1, 30, 40, 512, 512, 3), False),
-                            ((1, 30, 40, 768, 512, 1), True)]:
+    """What the C side reports of its plan. ``mma``: weights resident at
+    the narrow models' widths and streamed in chunks where they do not fit
+    (Cin 208), a ring of at least two stages, persistent blocks no more than
+    there are tiles. ``wgmma``: chunks of 32, 64 or 128 channels that divide
+    Cin, the cut of ``wgmma_plan`` (weights resident or streamed, the
+    tile), rings of at least two stages, one persistent block an SM at most
+    (resident: a whole number for each channel block)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape, resident in [((8, 120, 160, 48, 64, 3), True),
+                            ((8, 60, 80, 144, 128, 3), True),
+                            ((1, 30, 40, 208, 128, 3), False),
+                            ((1, 30, 40, 144, 80, 1), True)]:
         x, wq, scale, bias, osc = (torch.from_numpy(a).to(cuda)
                                    for a in qconv_case(1, *shape))
         kqconv.qconv_int8(x, wq, scale, bias, osc)
         torch.cuda.synchronize()
         plan = kqconv.last_plan
         b, h, w = shape[:3]
+        assert plan["variant"].startswith("mma_"), shape
         assert plan["weights_resident"] is resident, shape
         assert 2 <= plan["stages"] <= 4
         assert plan["chunk_channels"] % 16 == 0
         assert 1 <= plan["grid_x"] <= b * -(-h // 8) * -(-w // 16)
+        assert plan["shared_bytes"] <= 232448
+    for shape, mode in [((8, 120, 160, 64, 64, 3), "int8"),
+                        ((8, 60, 80, 128, 128, 3), "f32"),
+                        ((1, 30, 40, 512, 512, 3), "int8"),
+                        ((1, 30, 40, 768, 512, 1), "int8"),
+                        ((64, 60, 80, 512, 512, 3), "int8"),
+                        ((2, 9, 17, 96, 80, 3), "int32"),
+                        ((1, 5, 9, 2048, 128, 1), "f32")]:
+        x, wq, scale, bias, osc = (torch.from_numpy(a).to(cuda)
+                                   for a in qconv_case(1, *shape))
+        kw = {"int8": dict(out_scale=osc), "f32": {},
+              "int32": dict(out="int32")}[mode]
+        kqconv.qconv_int8(x, wq, scale, bias, **kw)
+        torch.cuda.synchronize()
+        plan = kqconv.last_plan
+        b, h, w, cin, cout, k = shape
+        assert plan["variant"].startswith("wgmma_"), shape
+        assert plan["chunk_channels"] in (32, 64, 128)
+        assert cin % plan["chunk_channels"] == 0
+        want = kqconv.wgmma_plan(cin, cout, k)
+        assert plan["weights_resident"] is want["weights_resident"], shape
+        assert plan["tile_pixels"] == want["tile_pixels"], shape
+        if plan["weights_resident"]:
+            assert plan["weight_stages"] == 0
+            assert 2 <= plan["stages"] <= 8 and plan["stages"] % 2 == 0
+        else:
+            assert 2 <= plan["stages"] <= 8
+            assert 2 <= plan["weight_stages"] <= 8
+        nblk = -(-cout // int(plan["variant"].split("_n")[1]))
+        tile = plan["tile_pixels"]
+        tiles = (b * -(-h // (tile // 16)) * -(-w // 16) if k == 3
+                 else -(-(b * h * w) // tile))
+        blocks = sms // nblk * nblk if plan["weights_resident"] else sms
+        assert plan["grid_x"] == min(blocks, tiles * nblk), shape
         assert plan["shared_bytes"] <= 232448
 
 
@@ -361,6 +403,100 @@ def test_qconv_alignment(cuda):
     got = kqconv.qconv_int8(view5, w5, s5, b5, o5)
     assert kqconv.variant_launches == {"dp4a_n32": 1}
     assert torch.equal(got, kqconv.qconv_reference(x5, w5, s5, b5, o5))
+
+
+def _wgmma_widths():
+    """Every distinct (Cin, Cout, k) of the port's models (the paper's two
+    detectors, the car detector with 8 landmarks and refine, the turbo
+    models) that the rule sends to the warpgroup variant."""
+    from densebox_tpu_torch import ModelCfg, kitti_vehicle, malf_face
+    from densebox_tpu_torch.models.quant import conv_shapes
+    turbo = ModelCfg(stem="s2d4", trunk_depth=3, width_mult=0.25)
+    cfgs = [kitti_vehicle().model, malf_face().model, turbo,
+            dataclasses.replace(turbo, num_landmarks=4, use_refine=True),
+            dataclasses.replace(kitti_vehicle().model, num_landmarks=8,
+                                use_refine=True)]
+    seen = {(cin, cout, k) for cfg in cfgs
+            for cout, cin, k, _ in conv_shapes(cfg).values()}
+    return sorted(w for w in seen
+                  if kqconv.kernel_variant(*w).startswith("wgmma"))
+
+
+WGMMA_WIDTHS = _wgmma_widths()
+
+
+def _all_modes(cuda, shape, seed, rows=None):
+    """The kernel against ``qconv_reference`` in the three modes, ReLU on
+    and off, bit for bit; ``rows`` checks only the first images."""
+    x, wq, scale, bias, osc = (torch.from_numpy(a).to(cuda)
+                               for a in qconv_case(seed, *shape))
+    variant = kqconv.kernel_variant(*shape[3:])
+    assert variant.startswith("wgmma")
+    for mode in ("int8", "f32", "int32"):
+        for relu in ((True, False) if mode != "int32" else (True,)):
+            kw = dict(out="int32") if mode == "int32" else {}
+            o = osc if mode == "int8" else None
+            kqconv.reset_launches()
+            got = kqconv.qconv_int8(x, wq, scale, bias, o, relu=relu, **kw)
+            torch.cuda.synchronize()
+            assert kqconv.variant_launches == {variant: 1}
+            xs = x if rows is None else x[:rows]
+            want = kqconv.qconv_reference(xs, wq, scale, bias, o, relu=relu,
+                                          **kw)
+            got = got if rows is None else got[:rows]
+            assert got.dtype == want.dtype
+            assert torch.equal(got, want), (shape, mode, relu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WGMMA_WIDTHS, ids=str)
+@pytest.mark.parametrize("batch,h,w", [(3, 13, 45), (1, 17, 19)])
+def test_wgmma_matches_reference_at_model_widths(cuda, width, batch, h, w):
+    _all_modes(cuda, (batch, h, w, *width), sum(width) + h)
+
+
+@pytest.mark.gpu
+def test_wgmma_kitti_size_launch(cuda):
+    """kitti's conv3_2 at B=64, 120 x 160, as the offline cell runs it,
+    checked against the plain version on its first two images."""
+    _all_modes(cuda, (64, 120, 160, 256, 256, 3), 32, rows=2)
+
+
+@pytest.mark.gpu
+def test_wgmma_takes_kitti_trunk(cuda):
+    """One ``QuantDenseBox`` forward of the paper's vehicle detector on the
+    card: conv1_2 to conv4_4 and the heads' conv1 launch the warpgroup
+    variant, conv1_1 the CUDA cores, the heads' conv2 ``mma.sync``; the
+    maps equal the CPU forward's bit for bit."""
+    from densebox_tpu_torch import kitti_vehicle
+    from densebox_tpu_torch.models import (QuantDenseBox, init_params,
+                                           quantize_densebox)
+    from densebox_tpu_torch.models.quant import conv_shapes
+    cfg = kitti_vehicle().model
+    x = torch.from_numpy(np.random.RandomState(4).rand(2, 48, 64, 3)
+                         .astype(np.float32))
+    sd = quantize_densebox(init_params(cfg, torch.Generator().manual_seed(2)),
+                           cfg, x)
+    want = {}
+    for dev in ("cpu", cuda):
+        model = QuantDenseBox(cfg, device=dev).eval()
+        model.load_state_dict(sd)
+        kqconv.reset_launches()
+        with torch.inference_mode():
+            want[str(dev)] = model(x.to(dev))
+        torch.cuda.synchronize()
+    counts = {}
+    for conv, (cout, cin, k, _) in conv_shapes(cfg).items():
+        v = kqconv.kernel_variant(cin, cout, k)
+        counts[v] = counts.get(v, 0) + 1
+        assert v.startswith("wgmma") == (conv != "conv1_1"
+                                         and not conv.endswith("_conv2"))
+    assert kqconv.variant_launches == counts
+    assert counts["wgmma_n64"] == 1 and counts["wgmma_n128"] >= 12
+    got, cpu = want[str(cuda)], want["cpu"]
+    assert set(got) == set(cpu)
+    for k in cpu:
+        assert torch.equal(got[k].cpu(), cpu[k]), k
 
 
 # (B, S, L, Hm, Wm, D, win): the MALF serve shape (5-scale pyramid of a

@@ -1,8 +1,10 @@
 """The int8 conv of the port at the widths its models really run, on the CPU.
 
 * ``kernel_variant`` names a variant of ``csrc/qconv.cu`` for every conv of
-  the five models the port serves, and the tensor-core one whenever Cin is a
-  multiple of 16.
+  the five models the port serves: the warpgroup one (``wgmma``) where Cin
+  is a multiple of 32 and Cout at least 64, else the ``mma.sync`` one
+  whenever Cin is a multiple of 16; ``wgmma_plan`` cuts a launch of the
+  warpgroup variant by its shape.
 * ``qconv_reference`` against the JAX package's ``qconv_reference`` at every
   distinct (Cin, Cout, k) of those models, on a small map whose height and
   width are no multiple of any tile, in the int8, f32 and int32 modes. JAX
@@ -31,8 +33,9 @@ from densebox_tpu_torch.models import (QuantDenseBox, init_params,
 from densebox_tpu_torch.models.quant import conv_shapes
 from densebox_tpu_torch.ops.kernels.qconv import (DP4A_CHANNEL_BLOCKS,
                                                   MMA_CHANNEL_BLOCKS,
+                                                  WGMMA_CHANNEL_BLOCKS,
                                                   kernel_variant, qconv_int8,
-                                                  qconv_reference)
+                                                  qconv_reference, wgmma_plan)
 from densebox_tpu_torch.ops.kernels.requant import requant_epilogue
 
 TURBO = ModelCfg(stem="s2d4", trunk_depth=3, width_mult=0.25)
@@ -59,14 +62,21 @@ def _model_widths():
 WIDTHS = _model_widths()
 
 
+def _path(cin, cout):
+    return ("wgmma" if cin % 32 == 0 and cout >= 64
+            else "mma" if cin % 16 == 0 else "dp4a")
+
+
 @pytest.mark.parametrize("name", list(MODELS))
 def test_kernel_variant_covers_model(name):
     shapes = conv_shapes(MODELS[name])
     assert len(shapes) >= 14
+    blocks_of = {"wgmma": WGMMA_CHANNEL_BLOCKS, "mma": MMA_CHANNEL_BLOCKS,
+                 "dp4a": DP4A_CHANNEL_BLOCKS}
     for conv, (cout, cin, k, _) in shapes.items():
         path, block = kernel_variant(cin, cout, k).split("_n")
-        assert path == ("mma" if cin % 16 == 0 else "dp4a"), conv
-        blocks = MMA_CHANNEL_BLOCKS if path == "mma" else DP4A_CHANNEL_BLOCKS
+        assert path == _path(cin, cout), conv
+        blocks = blocks_of[path]
         assert int(block) in blocks, conv
         # the smallest block that holds Cout, the largest above that
         assert int(block) == min([n for n in blocks if n >= cout]
@@ -75,18 +85,73 @@ def test_kernel_variant_covers_model(name):
         trunk_and_heads = [kernel_variant(cin, cout, k)
                            for conv, (cout, cin, k, _) in shapes.items()
                            if not conv.startswith("refine")]
-        assert all(v.startswith("mma") for v in trunk_and_heads)
+        assert all(v.startswith(("mma", "wgmma")) for v in trunk_and_heads)
+    if name.startswith("kitti"):
+        # the paper's trunk from conv1_2 on and the heads' conv1 take the
+        # warpgroup variant; conv1_1 (Cin 3) and the heads' conv2 (Cout <= 8)
+        # do not
+        for conv, (cout, cin, k, _) in shapes.items():
+            head_conv2 = "." in conv and conv.endswith("_conv2")
+            wide = conv not in ("conv1_1", "refine_conv1", "refine_out") \
+                and not head_conv2
+            assert kernel_variant(cin, cout, k).startswith("wgmma") == wide, \
+                conv
 
 
 @pytest.mark.parametrize("cin,cout,k,want", [
-    (48, 16, 3, "mma_n16"), (64, 64, 3, "mma_n64"), (128, 1, 1, "mma_n8"),
-    (512, 5, 1, "mma_n8"), (16, 9, 3, "mma_n16"), (768, 512, 1, "mma_n128"),
+    (48, 16, 3, "mma_n16"), (64, 64, 3, "wgmma_n64"), (128, 1, 1, "mma_n8"),
+    (512, 5, 1, "mma_n8"), (16, 9, 3, "mma_n16"), (768, 512, 1, "wgmma_n128"),
     (80, 130, 3, "mma_n128"), (3, 64, 3, "dp4a_n64"), (6, 64, 3, "dp4a_n64"),
     (5, 24, 3, "dp4a_n32"), (5, 4, 3, "dp4a_n16"), (24, 200, 1, "dp4a_n64"),
     (9, 64, 3, "dp4a_n64"), (512, 8, 1, "mma_n8"),
 ])
 def test_kernel_variant_rule(cin, cout, k, want):
     assert kernel_variant(cin, cout, k) == want
+
+
+# The warpgroup rule at its edges: Cin a multiple of 32 (not 16 alone), Cout
+# at least 64; the kernel size never enters it.
+_EDGE_VARIANTS = {
+    16: ("mma_n8", "mma_n32", "mma_n64", "mma_n128", "mma_n128", "mma_n128"),
+    32: ("mma_n8", "mma_n32", "wgmma_n64", "wgmma_n128", "wgmma_n128",
+         "wgmma_n128"),
+    48: ("mma_n8", "mma_n32", "mma_n64", "mma_n128", "mma_n128", "mma_n128"),
+    64: ("mma_n8", "mma_n32", "wgmma_n64", "wgmma_n128", "wgmma_n128",
+         "wgmma_n128"),
+    768: ("mma_n8", "mma_n32", "wgmma_n64", "wgmma_n128", "wgmma_n128",
+          "wgmma_n128"),
+}
+_EDGE_COUTS = (8, 32, 64, 128, 256, 512)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("cout", _EDGE_COUTS)
+@pytest.mark.parametrize("cin", sorted(_EDGE_VARIANTS))
+def test_kernel_variant_wgmma_edges(cin, cout, k):
+    want = _EDGE_VARIANTS[cin][_EDGE_COUTS.index(cout)]
+    assert kernel_variant(cin, cout, k) == want
+
+
+# (Cin, Cout, k) -> weights resident, pixels a block: resident where all
+# taps' weights of a channel block fit beside two input stages (each
+# consumer warpgroup on its own 128-pixel tiles), else streamed (256)
+@pytest.mark.parametrize("width,resident,tile", [
+    ((64, 64, 3), True, 128),       # kitti conv1_2, refine_conv2
+    ((64, 128, 3), True, 128),      # conv2_1
+    ((128, 128, 3), True, 128),     # conv2_2: 147 KB beside 2 x 30 KB
+    ((128, 256, 3), True, 128),     # conv3_1: the same a channel block
+    ((256, 256, 3), False, 256),    # conv3_2: 295 KB
+    ((256, 512, 3), False, 256),    # conv4_1
+    ((512, 512, 3), False, 256),    # conv4_2 .. conv4_4
+    ((768, 512, 1), True, 128),     # the heads' conv1: 98 KB
+    ((2048, 128, 1), False, 256),   # 1x1, 256 KB
+    ((160, 128, 3), True, 128),     # Cin 160: chunks of 32, 184 KB
+    ((192, 128, 3), False, 256),    # 221 KB
+    ((32, 64, 3), True, 128),       # the turbo models' narrowest
+])
+def test_wgmma_plan_follows_the_widths(width, resident, tile):
+    assert wgmma_plan(*width) == {"weights_resident": resident,
+                                  "tile_pixels": tile}
 
 
 @pytest.mark.parametrize("cin,cout,k", [(16, 16, 2), (0, 16, 3), (16, 0, 1),
