@@ -9,20 +9,11 @@ not 0):
   1. no card, no run: without CUDA the script exits 1 with no result;
   2. the card's name and power limit (nvidia-smi);
   3. build the CUDA kernels (NMS, int8 conv, requant, window gather, GT
-     rasterizers, OHEM, the int8 neck, and the empty kernel the launch
-     floors are timed with) from densebox_tpu_torch/csrc, one nvcc per
-     source, all at once;
-  4. NMS kernel against its plain PyTorch version on the card (B=8,
-     K in {256, 512, 1024}, random boxes and IoU-on-threshold pairs: keep
-     masks, indices, boxes and scores identical; then keep masks on every
-     set of ``nms_set`` at B=1 and 8 with K from 1 to 1024, and at B=256,
-     K=256 and B=64, K=512), with median times, and device times
-     (CUDA-graph replay, the graph's mask equal to the eager call's) at
-     the main path's shapes on a random, an all-kept and a chained set,
-     beside the bound and an empty launch of the same grid;
-  5. the paper model (width 1.0) forward in f32 on the card against the
+     rasterizers, OHEM, the int8 neck) from densebox_tpu_torch/csrc, one
+     nvcc per source, all at once;
+  4. the paper model (width 1.0) forward in f32 on the card against the
      port on the CPU (1e-3 absolute), then a bf16 forward;
-  6. serve: a DetectServer with the paper model in bf16, 480x640 canvas,
+  5. serve: a DetectServer with the paper model in bf16, 480x640 canvas,
      max_batch 8, the preset's 4-scale pyramid; 24 requests from 8 threads,
      answered, coalesced, and each equal bit for bit to a direct
      detect_batch of its image alone in slot 0 of a zero batch of 8, as
@@ -30,84 +21,30 @@ not 0):
      different images (``DenseBox._conv`` runs a batch that cuDNN would
      compute differently by slot one image a call: the bf16 512-channel
      convs at the 0.7071 and 0.3536 levels);
-  7. the same serve run with the turbo trunk (s2d4, depth 3, width 0.25);
-  8. int8 conv kernel against its plain version on the card, in its three
-     output modes, at every layer shape of the turbo model (B=8), paper
-     shapes and the edges of its variants (Cout 1 and 5, Cin 5, 6 and 768,
-     maps that are no multiple of the tile, B=1): outputs identical and
-     the variant launched the one ``kernel_variant`` names; then, on a line
-     of its own, the device time of every turbo layer (20 launches replayed
-     as a CUDA graph between one pair of events) beside its bound and the
-     same values through a bf16 ``F.conv2d``, and their sum over the 14
-     launches of a device call, and for the 1x1 layers whose widths
-     cuBLASLt takes, ``torch._int_mm`` of the same operands (the int32
-     accumulator only, no epilogue);
-  9. requant kernel against its plain version (B=8, 120x160x64, int8 and
-     f32 outputs): identical; median times; then, on a line of its own, its
-     device time at the accumulator of every conv of a hybrid device call
-     of the turbo model beside that shape's bound, and their sums over the
-     call's 14 launches;
- 10. the paper model in int8, calibrated on the card: its forward on the
+  6. the same serve run with the turbo trunk (s2d4, depth 3, width 0.25);
+  7. the paper model in int8, calibrated on the card: its forward on the
      card against the plain versions on the CPU with the same int8 state
      (B=2, 240x320): every int8 code and map identical; the fused and the
      hybrid chain identical on the card; the forward's time on the card;
-     then the int8 neck kernel against its plain version on the card at
-     kitti's four scales of a 480x640 canvas (B=8 and 64, 256 + 512
-     channels, an output scale of 2^-5 and an arbitrary one): every code
-     identical; event times of a call's four launches, the plain
-     version's, and device times by CUDA-graph replay beside the bound of
-     the call's bytes;
- 11. serve the turbo model in int8 (calibrated on the card from the canvas
-     batch, one scale), as phase 7: served equal to alone, one int8 conv
+  8. serve the turbo model in int8 (calibrated on the card from the canvas
+     batch, one scale), as phase 6: served equal to alone, one int8 conv
      launch per conv per device call, all 14 on the tensor-core variant,
      one NMS and one int8 neck launch per device call;
- 12. the same with the hybrid chain (int32 conv, then requant);
- 13. window-gather kernel against its plain version on the card, bitwise,
-     in bf16 and f32: the MALF serve shape (B=8, S=5, L=5, 170x228, D=64,
-     win 32, per-landmark origins), the bench's lm4 shape (B=8, S=1, L=4,
-     120x160, shared origins), a ragged one (win 17, odd map, D=5: the
-     element copy), a short one (win 8) and windows on every edge of an odd
-     map at every column offset modulo 8, from maps that start off a 16-byte
-     boundary (win 8, 17, 32; shared and per-landmark origins), and origins
-     outside the map (moved into it, as by the plain version); which of the
-     two copies ran; device times (CUDA-graph replay) at the first two
-     shapes beside the byte bound and an empty launch of the same grid;
- 14. landmark decode, card against CPU: the malf_face() model (width 1.0,
+  9. the same with the hybrid chain (int32 conv, then requant);
+ 10. landmark decode, card against CPU: the malf_face() model (width 1.0,
      5 landmarks, refine) in bf16 runs its 5-scale pyramid once on the card
      (B=2, 240x320); everything after the forward (decode, cap, NMS, scale
      selection, landmark decode) then runs on those maps on the card and on
      the CPU: boxes, scores, validity and landmarks identical, and the
      'std' scale selection counted where it differs;
- 15. serve malf_face() in bf16 (480x640 canvas, max_batch 8, its pyramid
-     and anchors, lm_topk 64), as phase 6: served equal to a direct
+ 11. serve malf_face() in bf16 (480x640 canvas, max_batch 8, its pyramid
+     and anchors, lm_topk 64), as phase 5: served equal to a direct
      detect_batch of the image alone bit for bit, landmarks included; one
      NMS and one window launch per device call;
- 16. serve the bench's landmark pipeline in int8: the turbo trunk with 4
+ 12. serve the bench's landmark pipeline in int8: the turbo trunk with 4
      landmarks and refine, no anchors (shared origins), calibrated on the
-     card, one scale: as phase 15, plus one int8 conv launch per conv;
- 17. both GT rasterizer kernels, each alone and the two as one launch,
-     against their plain versions on the card, bitwise: packed rows at the
-     training shape (B=32, K=16, M=60, L=5; out of band and invalid slots,
-     an empty patch, coincident and equidistant centres, rim-exact discs), a
-     ragged one (B=3, K=1, M=8, L=1), the training shape with every centre
-     and radius on the quarter-pixel grid and landmark radii other than 1,
-     with every slot invalid, 125 x 125 maps with K = 1024 box rows and with
-     K * L = 1024 landmark rows, and a landmark centre at every quarter
-     pixel across each edge of a block's chunk of the output, inside and
-     outside the map; then px boxes through ``rasterize`` on the card
-     against the CPU; event and device times at the training shape beside
-     an empty launch of each kernel's grid, and two launches against one
-     for a step's two maps;
- 18. OHEM kernel against its plain version on the card, bitwise, at B=32,
-     P=3600: random errors, all negatives tied, no positives, fewer
-     candidates than the quota, the errors of a real forward, and candidate
-     sets of 0, 1, the quotas and one more, around 256, and the whole
-     sample; two launches against one stacked launch for a step's two
-     terms; the floors: an empty launch of the same grid, and the chain of
-     block-wide rounds (those the worst sample of this run needs by the
-     schedule's numpy model, at the measured time of one round; the levels
-     one warp walks alone are counted beside it and not timed);
- 19. one train step, card against CPU: kitti_vehicle() and malf_face() at
+     card, one scale: as phase 11, plus one int8 conv launch per conv;
+ 13. one train step, card against CPU: kitti_vehicle() and malf_face() at
      full width in f32, B=4, 240 px, the same state, batch and given draws:
      GT maps identical, OHEM masks identical on the same errors, loss and
      metrics within 1e-4 relative, every gradient within 5e-3 of its largest
@@ -117,17 +54,17 @@ not 0):
      parameters, momentum and generator state: parameters, momentum, loss
      and update norm identical bit for bit; ms/step with the step's cuDNN
      pinning and with it taken out, in turns;
- 20. train kitti_vehicle() at full width, B=32, 240 px patches: 2 + 30
+ 14. train kitti_vehicle() at full width, B=32, 240 px patches: 2 + 30
      steps of make_train_step on synthetic batches drawn on the card; every
      loss and update norm finite, the mean loss of the last 5 steps below
      that of the first 5, parameters moved, per step 1 box-rasterizer
      launch, 0 landmark launches and 1 OHEM launch; ms/step and steps/s on
      the host clock (synchronised) on a line of their own;
- 21. train malf_face() at full width (5 landmarks, refine) through
+ 15. train malf_face() at full width (5 landmarks, refine) through
      make_canvas_train_step: 480 px canvases, 240 px patches sampled on the
-     card with flips, B=32, 2 + 12 steps: as phase 20, with 1 + 1 rasterizer
+     card with flips, B=32, 2 + 12 steps: as phase 14, with 1 + 1 rasterizer
      launches (one launch for the two maps) and 2 OHEM launches per step;
- 22. ``fit`` on kitti_vehicle() at full width, B=32, 240 px, on the card by
+ 16. ``fit`` on kitti_vehicle() at full width, B=32, 240 px, on the card by
      default, a step-keyed stream of synthetic batches, a temporary workdir
      (log every 4, checkpoint every 2, keep 2): 8 steps straight against 4
      steps, a restart from the checkpoint into a new model, and 4 more:
@@ -139,7 +76,7 @@ not 0):
      boundaries (set-up included) and without a workdir from a state made
      beforehand, the set-up's and one checkpoint write's time, beside the
      card;
- 23. the command line (``densebox_tpu_torch/cli.py``) as a user runs it, on
+ 17. the command line (``densebox_tpu_torch/cli.py``) as a user runs it, on
      a KITTI-format directory written here: 64 PNG scenes at KITTI's
      375 x 1242 (this script's own PNG writer, filter 0) with 1-6
      Car/Van/Truck boxes each plus DontCare lines. ``train`` in-process at
@@ -147,7 +84,7 @@ not 0):
      from 384 x 1248 canvases), 12 steps, a checkpoint every 6: rc 0, the
      logged losses finite, two checkpoints, 12 box-rasterizer and 12 OHEM
      launches, the loader's backend and how many steps waited on it, ms/step
-     beside phase 20's; the loader alone (batches/s, with the decoder the
+     beside phase 14's; the loader alone (batches/s, with the decoder the
      machine has and with cv2 hidden); ``eval --protocol kitti`` at a
      threshold from the model's score map: its summary, ``n_gt`` equal to
      the boxes written, one NMS launch per device call and every call's
@@ -165,11 +102,12 @@ not 0):
      own; and ``train --landmarks 4`` (width 0.25, 4 steps) then ``detect``
      of 4 images: one window and one NMS launch per device call, finite
      landmarks. The phase's time closes it;
- 24. multi-device (``parallel/``), kitti_vehicle() at full width, f32: (a)
+ 18. multi-device (``parallel/``), kitti_vehicle() at full width, f32: (a)
      a one-rank NCCL group in this process: the sharded train step
      at B=32, 240 px equal bit for bit to the bare step of the same state,
-     batch and draws (parameters, momentum, every metric); both timed in
-     turns; ``fit(use_mesh=True)`` 8 steps with checkpoints, ms/step; (b)
+     batch and draws (parameters, momentum, every metric), with one
+     box-rasterizer and one OHEM launch; both timed in turns;
+     ``fit(use_mesh=True)`` 8 steps with checkpoints, ms/step; (b)
      two and four processes sharing the one card over a gloo group on CUDA
      tensors (NCCL refuses two ranks on one device): gloo's all_reduce
      (f32, f64) and broadcast on CUDA tensors checked, then DP 2 and DP x
@@ -182,13 +120,13 @@ not 0):
      the same valid slots, boxes within 1e-3, one NMS launch per rank; (c)
      ``torchrun --standalone --nproc_per_node 1 -m densebox_tpu_torch.cli
      train --synthetic`` (NCCL, world 1), 3 steps and a checkpoint;
- 25. the turbo_int8 cell (B=8, 480 x 640, one scale) with
+ 19. the turbo_int8 cell (B=8, 480 x 640, one scale) with
      ``QuantDenseBox(backend='xla')`` (the JAX package's default chain):
      every int8 code, int32 accumulator and map on the card equal to the
      CPU's; 14 ``qconv_int8`` launches per device call, all in int32 mode,
      no ``requant_epilogue``; the device call of 'fused' and 'xla' timed in
      turns, median (q1, q3);
- 26. export (``densebox_tpu_torch/export.py``) of the turbo_int8, paper and
+ 20. export (``densebox_tpu_torch/export.py``) of the turbo_int8, paper and
      malf_bf16 cells at B=8, 480 x 640: first a trace in a process whose
      constant caches were emptied, after which the live detect is unchanged
      and no int8 epilogue vector was kept; then export, save, reload: the
@@ -204,7 +142,7 @@ not 0):
      ``cli train`` (1 step), ``cli export`` and ``python3 -m
      densebox_tpu_torch.cli serve --artifact`` as a subprocess: 4 PNG
      requests, each equal to a direct detect of the checkpoint's model;
- 27. precision: the port computes at the reference's precision by itself
+ 21. precision: the port computes at the reference's precision by itself
      (``device.reference_precision``), and this script sets none of torch's
      precision flags; the phase starts with them as torch starts. (a)
      kitti_vehicle() at full width in f32 (B=2 on the 384 x 1248 canvas,
@@ -229,11 +167,11 @@ not 0):
      chain's upsample runs inside the int8 neck kernel, whose codes in the
      turbo model's forward equal the plain version's on the CPU from the
      same inputs;
- 28. certification: ``python -m densebox_tpu_torch.certify`` as a
+ 22. certification: ``python -m densebox_tpu_torch.certify`` as a
      subprocess for fast-s2d2-w0.5-lm4 at 200 steps and 2 eval batches:
      one JSON row with finite AP@0.50 in bf16 and int8 and a finite
      landmark error distribution, and its wall time;
- 29. the port's bench and load test, as a user runs them: ``python -m
+ 23. the port's bench and load test, as a user runs them: ``python -m
      densebox_tpu_torch.bench`` (through its ``main`` in this process, so
      that the kernels' counters are readable) at 480 x 640 for turbo int8
      at B=256 (the README's headline command), fast int8 at B=128 on the
@@ -248,19 +186,32 @@ not 0):
      requests from 8 clients on (one client's every request is a call of
      its own), every answer equal to a detect of its image alone in slot 0
      of a zero batch, one NMS and 14 ``qconv_int8`` launches per device
-     call (warm-ups included).
+     call (warm-ups included);
+ 24. the kernels against their plain versions, once at the main path's
+     shapes (``kernel_cases.py``): each kernel through its wrapper on card
+     tensors, bit for bit against its plain version on the same tensors:
+     NMS at every (B, K) the main path calls (random set); ``qconv_int8``
+     at every conv shape of the turbo int8 model (B=8, in the mode the model
+     runs it, on the variant ``kernel_variant`` names) and at kitti's
+     offline shapes (B=64, two rows compared); ``requant_epilogue`` at the
+     accumulators of a hybrid call's 14 launches; ``gather_windows`` at the
+     MALF and lm4 shapes in bf16; both rasterizers alone and in one launch
+     at a train step's shape; ``ohem_select`` on the errors of a forward
+     (B=32, P=3600); the int8 neck at kitti's four scales, B=8 and 64, at
+     two output scales. Then the kernels line: each kernel's launches in
+     the main-path run that drives it (counted in that run's phase, its
+     counters zeroed just before) and its bound at the shape of its row in
+     PERF.md's table of kernels.
 At the end torch's three precision flags read as they did at the start.
 Each serve and train run resets every kernel's launch counter just before
 its requests or steps and reads them just after. The line before the last
-lists the eight kernels (with the least time the card could take for the
-same bytes or operations, from the published peaks of an H100 SXM, and one
-PyTorch call's time where one computes the same function; ``ms`` is device
-time by CUDA-graph replay for the int8 conv, the window gather, the
-rasterizers and OHEM, which also carry ``floor_ms``, an empty launch of their
-grid; the int8 neck's ``ms`` is event time, and it carries its device time
-by replay as ``device_ms`` and its B=64 call as ``B64``; and their launches on the paths of phases 24-26 as
-``launches_<run>``), after the card line again and the script's seconds;
-the last line is {"ok": true, "device": {...}}.
+is the script's seconds; the last line is {"ok": true, "device": {...}}.
+
+This script drives the program's entry points end to end and checks each
+kernel once at the main path's shapes (phase 24). The gpu-marked tests
+(``tests/test_torch_kernels.py``, ``tests/test_torch_neck.py``) hold each
+kernel to its plain version on its edge cases too, and ``profile_port.py``
+(groups ``nms``, ``qconv``, ``small_kernels``) times them.
 
 Weights are random (torch.Generator seeds), so detections are not
 meaningful objects: the score threshold of the serve phases is set from
@@ -286,10 +237,16 @@ from unittest import mock
 
 import numpy as np
 
+from kernel_cases import (KITTI_OFFLINE, NMS_SHAPES, QCONV_CASES, TRAIN_RASTER,
+                          TURBO_LAUNCHES, WINDOW_CASES, label_rows,
+                          neck_bound, neck_levels, nms_bound, nms_set,
+                          ohem_bound, ohem_forward_case, qconv_bound,
+                          qconv_inputs, rasterizer_bounds, requant_bound,
+                          window_bound, window_inputs)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-# csrc/<name>.cu; floor.cu is the empty kernel the launch floors are timed with
-KERNELS = ("nms", "qconv", "requant", "window", "labels", "ohem", "neck",
-           "floor")
+# csrc/<name>.cu of the program's kernels
+KERNELS = ("nms", "qconv", "requant", "window", "labels", "ohem", "neck")
 
 
 def emit(obj) -> None:
@@ -314,44 +271,6 @@ def event_seconds(fn, reps: int):
     return times
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
-    return float(np.median(event_seconds(fn, reps))) * 1e3
-
-
-def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
-    """Device time of one call of ``fn``: ``launches`` calls captured into a
-    CUDA graph, the graph replayed between one pair of events, the median of
-    ``reps`` replays over ``launches``. A replay costs the host one launch,
-    so the events bracket the kernels and not their enqueue (an event pair
-    around one eager call of a 10 us kernel reads mostly the wrapper).
-    Inputs and outputs stay in the L2 cache from launch to launch."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):       # warm up off the default stream
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return float(np.median(times))
-
-
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -373,184 +292,6 @@ def phase_build():
               "seconds_all": time.perf_counter() - t0,
               "ptxas": [ln.strip() for ln in log
                         if "registers" in ln or "Compiling entry" in ln]})
-
-
-def random_case(rng, b, k):
-    """Clustered boxes (many overlaps) with score ties and invalid slots."""
-    ctr = rng.uniform(0, 640, (b, k, 2)) * np.array([1.0, 0.75])
-    ctr = np.round(ctr / 40) * 40 + rng.normal(0, 6, (b, k, 2))
-    wh = rng.uniform(8, 120, (b, k, 2))
-    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
-    scores = np.round(rng.uniform(0, 1, (b, k)), 2).astype(np.float32)
-    valid = rng.uniform(size=(b, k)) > 0.15
-    return boxes, scores, valid
-
-
-def threshold_case(rng, b, k, integer_frac=0.5):
-    """Pairs whose IoU is 0.5 in exact arithmetic: integer pairs where f32
-    gives exactly 0.5 (kept), and float pairs shifted by a third of their
-    width, which f32 rounds to either side of 0.5."""
-    n = k // 2
-    x = rng.uniform(0, 600, (b, n)).astype(np.float32)
-    y = rng.uniform(0, 400, (b, n)).astype(np.float32)
-    w = rng.uniform(6, 90, (b, n)).astype(np.float32)
-    h = rng.uniform(6, 90, (b, n)).astype(np.float32)
-    integer = rng.uniform(size=(b, n)) < integer_frac
-    x, y, w, h = (np.where(integer, np.round(v), v) for v in (x, y, w, h))
-    w = np.where(integer, 3 * np.maximum(np.round(w / 3), 1), w)
-    a = np.stack([x, y, x + w, y + h], -1)
-    s = (w / 3).astype(np.float32)       # IoU(a, a + s) = (w-s)/(w+s) = 1/2
-    p = np.stack([x + s, y, x + w + s, y + h], -1)
-    boxes = np.stack([a, p], 2).reshape(b, 2 * n, 4)
-    if k > 2 * n:
-        boxes = np.concatenate([boxes, np.zeros((b, k - 2 * n, 4))], 1)
-    scores = np.linspace(1.0, 0.0, k, dtype=np.float32)[None].repeat(b, 0)
-    return boxes.astype(np.float32), scores, np.ones((b, k), bool)
-
-
-NMS_SETS = ("random", "disjoint", "identical", "chain", "threshold",
-            "interleaved_invalid", "all_invalid")
-# (B, K) of the NMS calls timed: serving at B=8, the bench's turbo and paper
-NMS_SHAPES = ((8, 256), (8, 512), (8, 1024), (256, 256), (64, 512))
-
-
-def nms_set(name, b, k, seed=0):
-    """(boxes (B, K, 4) f32 in score order, valid (B, K) bool) of one of the
-    NMS kernel's test sets (``NMS_SETS``): ``random_case``; no two boxes
-    overlapping (all kept); one box K times (the first kept); a chain of
-    10-pixel boxes 2 pixels apart, each suppressing the next (IoU 2/3) and
-    not the one after (3/7), so every other box stays and the greedy order
-    is one chain K long; ``threshold_case`` (pairs at IoU 0.5); the chain
-    with every third box invalid; and every box invalid."""
-    rng = np.random.RandomState(seed)
-    if name in ("random", "all_invalid"):
-        boxes, _, valid = random_case(rng, b, k)
-        return boxes, valid & (name == "random")
-    if name == "threshold":
-        boxes, _, valid = threshold_case(rng, b, k)
-        return boxes, valid
-    n = np.arange(k, dtype=np.float32)
-    y = rng.randint(0, 400, (b, 1)).astype(np.float32) + 0 * n
-    step = {"disjoint": 4, "identical": 0}.get(name, 2)
-    x = rng.randint(0, 100, (b, 1)).astype(np.float32) + step * n
-    size = 2 if name == "disjoint" else 10
-    boxes = np.stack([x, y, x + size, y + size], -1).astype(np.float32)
-    valid = np.ones((b, k), bool)
-    if name == "interleaved_invalid":
-        valid[:, 1::3] = False
-    return boxes, valid
-
-
-def phase_nms():
-    import torch
-
-    from densebox_tpu_torch.ops.kernels import nms as knms
-    from densebox_tpu_torch.ops.nms import nms
-
-    rng = np.random.RandomState(0)
-    dev = torch.device("cuda")
-    cases = [("random", k, random_case(rng, 8, k)) for k in (256, 512, 1024)]
-    cases += [("iou_on_threshold", k, threshold_case(rng, 8, k))
-              for k in (256, 512, 1024)]
-    err, results = 0.0, []
-    for name, k, (boxes, scores, valid) in cases:
-        b_cpu, s_cpu, v_cpu = (torch.from_numpy(a) for a in (boxes, scores, valid))
-        b_gpu, s_gpu, v_gpu = (t.to(dev) for t in (b_cpu, s_cpu, v_cpu))
-        # keep mask: kernel vs plain version, same inputs on the card
-        order = torch.sort(torch.where(v_gpu, s_gpu, float("-inf")), dim=1,
-                           descending=True, stable=True).indices
-        sb = torch.gather(b_gpu, 1, order[..., None].expand(-1, -1, 4))
-        sv = torch.gather(v_gpu, 1, order)
-        keep = knms.greedy_keep(sb, sv, 0.5)
-        keep_ref = knms.greedy_keep_reference(sb, sv, 0.5)
-        torch.cuda.synchronize()
-        n_diff = int((keep != keep_ref).sum())
-        # whole NMS: kernel path on the card vs plain path on the CPU
-        got = nms(b_gpu, s_gpu, v_gpu, iou_thresh=0.5, max_out=128,
-                  return_idx=True)
-        want = nms(b_cpu, s_cpu, v_cpu, iou_thresh=0.5, max_out=128,
-                   return_idx=True)
-        got = [t.cpu() for t in got]
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        fin = torch.isfinite(want[1])
-        box_err = float((got[0] - want[0]).abs().max())
-        err = max(err, float(n_diff), box_err,
-                  float((got[1][fin] - want[1][fin]).abs().max()))
-        results.append({"case": name, "B": 8, "K": k, "kept": int(keep.sum()),
-                        "keep_mismatches": n_diff, "nms_outputs_equal": same})
-        if n_diff or not same:
-            emit({"phase": "nms_kernel", "results": results})
-            raise AssertionError(f"NMS kernel disagrees with its plain "
-                                 f"version ({name}, K={k})")
-    # keep masks on every set of the schedule model
-    # (tests/test_torch_nms_schedule.py), at B=1 and 8, and at the bench's
-    # B=256, K=256 and B=64, K=512
-    shapes = [(b, k) for k in (1, 63, 64, 65, 97, 100, 256, 512, 1024)
-              for b in (1, 8)] + [(256, 256), (64, 512)]
-    bad = []
-    for name in NMS_SETS:
-        for b, k in shapes:
-            boxes, valid = nms_set(name, b, k, seed=k)
-            tb = torch.from_numpy(boxes).to(dev)
-            tv = torch.from_numpy(valid).to(dev)
-            n_diff = int((knms.greedy_keep(tb, tv, 0.5)
-                          != knms.greedy_keep_reference(tb, tv, 0.5)).sum())
-            if n_diff:
-                bad.append({"set": name, "B": b, "K": k,
-                            "keep_mismatches": n_diff})
-    results.append({"case": "sets", "sets": list(NMS_SETS),
-                    "shapes": shapes, "keep_mismatches": len(bad),
-                    "failed": bad})
-    if bad:
-        emit({"phase": "nms_kernel", "results": results})
-        raise AssertionError(f"NMS kernel disagrees with its plain version "
-                             f"on {len(bad)} set(s)")
-    times = {}
-    for k in (256, 512):
-        boxes, scores, valid = random_case(rng, 8, k)
-        sb = torch.from_numpy(boxes).to(dev)
-        sv = torch.from_numpy(valid).to(dev)
-        times[k] = (median_ms(lambda: knms.greedy_keep(sb, sv, 0.5), 50),
-                    median_ms(lambda: knms.greedy_keep_reference(sb, sv, 0.5), 7))
-        if k == 512:
-            bound_512 = nms_bound(valid)
-    # device time by CUDA-graph replay (one launch a call, no other host
-    # call: the graph's mask must equal the eager call's), beside the bound
-    # and an empty launch of the same grid
-    dev_ms = {}
-    for b, k in NMS_SHAPES:
-        for name in ("random", "disjoint", "chain"):
-            boxes, valid = nms_set(name, b, k, seed=1)
-            tb = torch.from_numpy(boxes).to(dev)
-            tv = torch.from_numpy(valid).to(dev)
-            eager = knms.greedy_keep(tb, tv, 0.5)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                captured = knms.greedy_keep(tb, tv, 0.5)
-            graph.replay()
-            if not torch.equal(captured, eager):
-                raise AssertionError(f"NMS kernel in a CUDA graph differs "
-                                     f"({name}, B={b}, K={k})")
-            dev_ms[f"{name}_B{b}_K{k}"] = {
-                "device_ms": device_ms(lambda: knms.greedy_keep(tb, tv, 0.5)),
-                "kept": int(eager.sum()), "bound_ms": nms_bound(valid)[0]}
-        cluster, threads = knms.launch_shape(b, k)
-        dev_ms[f"floor_B{b}_K{k}"] = empty_launch_ms(cluster, b, threads)
-    emit({"phase": "nms_kernel", "results": results, "max_abs_err": err,
-          "median_ms": {f"B8_K{k}": {"kernel": t[0], "plain": t[1]}
-                        for k, t in times.items()},
-          "device": dev_ms, "bound_by": "operations"})
-    return err, times[512], bound_512, None, {
-        "floor_ms": dev_ms["floor_B8_K512"]}
-
-
-def nms_bound(valid):
-    """(bound_ms, bound_by) of one ``greedy_keep`` call: boxes and flags in,
-    the keep mask out, and 16 float operations for the IoU test of each pair
-    of valid boxes (the kernel tests no other pair)."""
-    b, k = valid.shape
-    n = valid.sum(1).astype(np.float64)
-    return bound(b * k * (16 + 1 + 1), float((n * (n - 1) / 2).sum()) * 16)
 
 
 def float_state(cfg, seed=0, loc_bias=0.0):
@@ -656,228 +397,6 @@ def phase_forward():
         raise AssertionError("bf16 forward produced non-finite maps")
 
 
-# (name, B, H, W, Cin, Cout, k): every int8 conv shape of the turbo model at
-# the serving batch (trunk at 120x160 and, after the pool, 60x80; the heads'
-# 1x1 convs), paper conv1_1 and conv4_2 (B=2 keeps the plain version short),
-# then the edges of the kernel's variants: W=33 and Cin=5 (the CUDA-core
-# variant), Cout 1 and 5 (masked scalar stores), Cin 6 (refine_conv1), Cin
-# 768 (the paper's head conv1: weights streamed in chunks, at a small map),
-# a map whose height and width are no multiple of the 8x16 tile, and B=1;
-# then kitti's offline launches at B=64 (the warpgroup variant), timed
-# against their least time in KITTI_OFFLINE (the reference is checked on
-# their first two images)
-QCONV_CASES = [
-    ("turbo_conv1_1", 8, 120, 160, 48, 16, 3),
-    ("turbo_conv1_2", 8, 120, 160, 16, 16, 3),
-    ("turbo_conv2_1", 8, 120, 160, 16, 32, 3),
-    ("turbo_conv2_2", 8, 120, 160, 32, 32, 3),
-    ("turbo_conv3_1", 8, 120, 160, 32, 64, 3),
-    ("turbo_conv3_2", 8, 120, 160, 64, 64, 3),
-    ("turbo_conv4_1", 8, 60, 80, 64, 128, 3),
-    ("turbo_conv4_2", 8, 60, 80, 128, 128, 3),
-    ("turbo_head_conv1", 8, 120, 160, 192, 128, 1),
-    ("turbo_det_conv2", 8, 120, 160, 128, 1, 1),
-    ("turbo_loc_conv2", 8, 120, 160, 128, 4, 1),
-    ("paper_conv1_1", 2, 240, 320, 3, 64, 3),
-    ("paper_conv4_2", 2, 30, 40, 512, 512, 3),
-    ("ragged", 3, 13, 33, 5, 24, 3),
-    ("malf_lm_conv2", 2, 60, 80, 512, 5, 1),
-    ("malf_refine_conv1", 2, 60, 80, 6, 64, 3),
-    ("paper_head_conv1", 1, 30, 40, 768, 512, 1),
-    ("off_tile", 2, 27, 45, 64, 64, 3),
-    ("batch_1", 1, 120, 160, 64, 64, 3),
-    ("kitti_conv2_2", 64, 240, 320, 128, 128, 3),
-    ("kitti_conv3_2", 64, 120, 160, 256, 256, 3),
-    ("kitti_conv4_2", 64, 60, 80, 512, 512, 3),
-    ("kitti_head_conv1", 64, 120, 160, 768, 512, 1),
-]
-KITTI_OFFLINE = ("kitti_conv2_2", "kitti_conv3_2", "kitti_conv4_2",
-                 "kitti_head_conv1")
-# how often a device call of the turbo int8 model launches each timed shape
-# (conv3_2 = conv3_3, conv4_2 = conv4_3, det and loc conv1): 14 in all; the
-# output mode it is timed in is the model's (f32 from the heads' conv2)
-TURBO_LAUNCHES = {"turbo_conv1_1": 1, "turbo_conv1_2": 1, "turbo_conv2_1": 1,
-                  "turbo_conv2_2": 1, "turbo_conv3_1": 1, "turbo_conv3_2": 2,
-                  "turbo_conv4_1": 1, "turbo_conv4_2": 2,
-                  "turbo_head_conv1": 2, "turbo_det_conv2": 1,
-                  "turbo_loc_conv2": 1}
-
-
-def qconv_inputs(rng, b, h, w, cin, cout, k, dev):
-    """Int8 activations and weights over the whole code range, and epilogue
-    vectors that put y at a few units, so that int8 outputs round and
-    clip."""
-    import torch
-
-    x = rng.randint(-127, 128, (b, h, w, cin)).astype(np.int8)
-    wq = rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8)
-    spread = 127.0 * 127.0 * np.sqrt(k * k * cin)
-    vecs = [rng.uniform(1.0, 3.0, cout) / spread, rng.uniform(-0.5, 0.5, cout),
-            rng.uniform(20.0, 40.0, cout)]
-    return [torch.from_numpy(a).to(dev)
-            for a in [x, wq] + [v.astype(np.float32) for v in vecs]]
-
-
-def phase_qconv():
-    import torch
-
-    from densebox_tpu_torch.ops.kernels import qconv as kq
-
-    rng = np.random.RandomState(5)
-    results, err, layers, row2, kitti = [], 0.0, {}, None, {}
-    for name, *shape in QCONV_CASES:
-        b, h, w, cin, cout, k = shape
-        x, wq, scale, bias, osc = qconv_inputs(rng, *shape, "cuda")
-        modes = {"int8": dict(out_scale=osc), "f32": dict(relu=False),
-                 "int32": dict(out="int32")}
-        variant = kq.kernel_variant(cin, cout, k)
-        row = {"case": name, "shape": shape, "variant": variant}
-        rows = 2 if name in KITTI_OFFLINE else b
-        for mode, kw in modes.items():
-            kq.reset_launches()
-            got = kq.qconv_int8(x, wq, scale, bias, **kw)[:rows]
-            want = kq.qconv_reference(x[:rows], wq, scale, bias, **kw)
-            torch.cuda.synchronize()
-            diff = float((got.double() - want.double()).abs().max())
-            row[mode] = {"equal": bool(torch.equal(got, want)),
-                         "max_abs_err": diff}
-            err = max(err, diff)
-            if not row[mode]["equal"] or kq.variant_launches != {variant: 1}:
-                emit({"phase": "qconv_kernel", "results": results + [row],
-                      "variant_launches": kq.variant_launches})
-                raise AssertionError(f"int8 conv kernel disagrees with its "
-                                     f"plain version or took another "
-                                     f"variant ({name}, {mode})")
-        row["plan"] = dict(kq.last_plan)
-        results.append(row)
-        if name in KITTI_OFFLINE:
-            # the offline chain's mode (int8 codes on), port_bench's bytes
-            bnd = bound(b * h * w * (cin + cout) + wq.numel() + 12 * cout,
-                        2 * b * h * w * cin * cout * k * k, "int8")
-            ms = device_ms(lambda: kq.qconv_int8(x, wq, scale, bias, osc),
-                           launches=5)
-            kitti[name] = {"variant": variant, "plan": row["plan"],
-                           "kernel_ms": ms, "bound_ms": bnd[0],
-                           "bound_by": bnd[1],
-                           "roofline_share_pct": 100.0 * bnd[0] / ms}
-            continue
-        if name not in TURBO_LAUNCHES:
-            continue
-        # the mode the model runs this layer in; int8 in, weights, three
-        # float vectors, the output; two int8 operations per multiply-add
-        mode = "f32" if cout <= 4 else "int8"
-        kw, out_bytes = modes[mode], 4 if mode == "f32" else 1
-        args = (x, wq, scale, bias)
-        bnd = bound(b * h * w * (cin + cout * out_bytes) + wq.numel()
-                    + 12 * cout, 2 * b * h * w * cin * cout * k * k, "int8")
-        layers[name] = {
-            "variant": variant, "mode": mode,
-            "kernel_ms": device_ms(lambda: kq.qconv_int8(*args, **kw)),
-            "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_bf16_conv_ms": conv_library_ms(args),
-            "launches_per_call": TURBO_LAUNCHES[name]}
-        if k == 1 and cin % 8 == 0 and cout % 8 == 0:
-            layers[name].update(int_mm_library(args))
-        if name == "turbo_conv3_2":
-            # the row of the kernels line: the kernel's and the library
-            # call's device time, the plain version's event time
-            row2 = (err, (layers[name]["kernel_ms"], median_ms(
-                lambda: kq.qconv_reference(*args, **kw), 10)), bnd,
-                layers[name]["library_bf16_conv_ms"])
-            layers[name]["kernel_event_ms"] = median_ms(
-                lambda: kq.qconv_int8(*args, **kw), 50)
-    emit({"phase": "qconv_kernel", "results": results, "max_abs_err": err})
-    emit({"phase": "qconv_kitti_offline", "batch": 64,
-          "timing": "device time: 5 launches replayed as a CUDA graph "
-                    "between one pair of events, median of 5",
-          "layers": kitti})
-    per_call = {key: sum(v[key] * v["launches_per_call"]
-                         for v in layers.values())
-                for key in ("kernel_ms", "bound_ms", "library_bf16_conv_ms")}
-    mm = {n: v for n, v in layers.items() if "library_int_mm_ms" in v}
-    per_call["int_mm_layers"] = {
-        key: sum(v[key] * v["launches_per_call"] for v in mm.values())
-        for key in ("kernel_ms", "library_int_mm_ms")}
-    emit({"phase": "qconv_turbo_layers", "batch": 8,
-          "timing": "device time: 20 launches replayed as a CUDA graph "
-                    "between one pair of events, median of 5",
-          "layers": layers, "per_device_call_14_launches": per_call})
-    if not all(v["int_mm_equal"] for v in mm.values()):
-        raise AssertionError("torch._int_mm's accumulator differs from the "
-                             "plain one")
-    return (max(err, row2[0]),) + row2[1:]
-
-
-def phase_requant():
-    import torch
-
-    from densebox_tpu_torch.ops.kernels import requant as kr
-
-    rng = np.random.RandomState(6)
-    shape = (8, 120, 160, 64)
-    acc = torch.from_numpy(rng.randint(-2 ** 20, 2 ** 20, shape)
-                           .astype(np.int32)).cuda()
-    scale, bias, osc = (torch.from_numpy(v.astype(np.float32)).cuda() for v in (
-        rng.uniform(1e-6, 3e-6, 64), rng.uniform(-0.5, 0.5, 64),
-        rng.uniform(20, 40, 64)))
-    results, err, times = {}, 0.0, {}
-    for mode, o in (("int8", osc), ("f32", None)):
-        got = kr.requant_epilogue(acc, scale, bias, o)
-        want = kr.requant_reference(acc, scale, bias, o)
-        torch.cuda.synchronize()
-        diff = float((got.double() - want.double()).abs().max())
-        results[mode] = {"equal": bool(torch.equal(got, want)),
-                         "max_abs_err": diff}
-        err = max(err, diff)
-        args = (acc, scale, bias, o)
-        times[mode] = (median_ms(lambda: kr.requant_epilogue(*args), 50),
-                       median_ms(lambda: kr.requant_reference(*args), 20))
-    emit({"phase": "requant_kernel", "input": list(shape), "results": results,
-          "max_abs_err": err,
-          "median_ms": {f"{m}_B8": {"kernel": t[0], "plain": t[1]}
-                        for m, t in times.items()}})
-    if not all(r["equal"] for r in results.values()):
-        raise AssertionError(f"requant kernel disagrees with its plain "
-                             f"version: {results}")
-    # every launch of a hybrid device call of the turbo model (B=8): the
-    # accumulator of each conv in the mode the model runs the layer in, its
-    # device time beside its bound (int32 in, int8 or f32 out, three float
-    # vectors; five float operations an element), and their sums
-    layers = {}
-    for name, b, h, w, _, cout, _ in QCONV_CASES:
-        if name not in TURBO_LAUNCHES:
-            continue
-        la = torch.from_numpy(rng.randint(-2 ** 20, 2 ** 20, (b, h, w, cout))
-                              .astype(np.int32)).cuda()
-        vecs = [torch.from_numpy(rng.uniform(lo, hi, cout).astype(np.float32))
-                .cuda() for lo, hi in ((1e-6, 3e-6), (-0.5, 0.5), (20, 40))]
-        f32_out = cout <= 4                      # the heads' conv2
-        args = (la, vecs[0], vecs[1], None if f32_out else vecs[2])
-        kw = dict(relu=not f32_out)
-        if not torch.equal(kr.requant_epilogue(*args, **kw),
-                           kr.requant_reference(*args, **kw)):
-            raise AssertionError(f"requant kernel disagrees with its plain "
-                                 f"version at {name}")
-        bnd = bound(la.numel() * (4 + (4 if f32_out else 1)) + 12 * cout,
-                    la.numel() * 5)
-        layers[name] = {
-            "shape": list(la.shape), "mode": "f32" if f32_out else "int8",
-            "kernel_ms": device_ms(lambda: kr.requant_epilogue(*args, **kw)),
-            "bound_ms": bnd[0], "bound_by": bnd[1],
-            "launches_per_call": TURBO_LAUNCHES[name]}
-    per_call = {key: sum(v[key] * v["launches_per_call"]
-                         for v in layers.values())
-                for key in ("kernel_ms", "bound_ms")}
-    per_call["share_of_bound"] = per_call["bound_ms"] / per_call["kernel_ms"]
-    emit({"phase": "requant_turbo_layers", "batch": 8,
-          "timing": "device time: 20 launches replayed as a CUDA graph "
-                    "between one pair of events, median of 5",
-          "layers": layers, "per_hybrid_call_14_launches": per_call})
-    # int32 in, int8 out, three float vectors; five float operations each
-    return err, times["int8"], bound(acc.numel() * 5 + 12 * 64,
-                                     acc.numel() * 5)
-
-
 def recorded_forward(model, x):
     """``model(x)`` and every int8 conv / requant output it made, in order."""
     import torch
@@ -949,98 +468,6 @@ def phase_forward_int8():
     if not all(fused_eq_hybrid.values()):
         raise AssertionError(f"fused and hybrid int8 chains differ on the "
                              f"card: {fused_eq_hybrid}")
-
-
-def neck_levels(b, seed):
-    """The int8 neck's inputs at kitti's four scales of a 480 x 640 canvas,
-    batch ``b``, on the card: f3 codes (256 channels) over the whole int8
-    range, f4 (512 channels) mostly a ReLU's output with a few negatives."""
-    import torch
-
-    from densebox_tpu_torch import kitti_vehicle
-    from densebox_tpu_torch.infer.detector import pyramid_shapes
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    levels = []
-    for h, w, _, _ in pyramid_shapes(480, 640, kitti_vehicle().infer.scales):
-        f3 = torch.randint(-127, 128, (b, h // 4, w // 4, 256), generator=g,
-                           device="cuda", dtype=torch.int8)
-        f4 = torch.rand((b, h // 8, w // 8, 512), generator=g,
-                        device="cuda") * 5.0
-        f4 = torch.where(torch.rand(f4.shape, generator=g, device="cuda")
-                         < 0.3, 0.0, f4) - 0.05
-        levels.append((f3, f4))
-    return levels
-
-
-def phase_neck():
-    """The int8 neck kernel against its plain version on the card, at
-    kitti's four scales (B=8 and 64) and two output scales, a power of two
-    (quotients on exact halves) and an arbitrary one; times of a call's four
-    launches at B=8 (the main path's serve batch) and 64 (the offline one)
-    beside the bound of their bytes."""
-    import torch
-
-    from densebox_tpu_torch.ops.kernels import neck as kneck
-
-    s3 = torch.tensor(0.0173, device="cuda")
-    scales = {"pow2": torch.tensor(2.0 ** -5, device="cuda"),
-              "arbitrary": torch.tensor(0.0219, device="cuda")}
-    results, err, times = {}, 0.0, {}
-    for b in (8, 64):
-        levels = neck_levels(b, seed=b)
-        for key, so in scales.items():
-            for f3, f4 in levels:
-                got = kneck.int8_neck(f3, f4, s3, so)
-                want = kneck.neck_reference(f3, f4, s3, so)
-                n_diff = int((got != want).sum())
-                err = max(err, float((got.int() - want.int()).abs().max()))
-                row = results.setdefault(f"B{b}_{key}", {
-                    "shapes": [], "codes": 0, "codes_differing": 0})
-                row["shapes"].append(list(got.shape))
-                row["codes"] += got.numel()
-                row["codes_differing"] += n_diff
-                del got, want
-        so = scales["arbitrary"]
-
-        def kernel():
-            return [kneck.int8_neck(f3, f4, s3, so) for f3, f4 in levels]
-
-        def plain():
-            return [kneck.neck_reference(f3, f4, s3, so) for f3, f4 in levels]
-
-        # f3 codes and f4 in float32 read, 256 + 512 codes written a
-        # position; per code written at most eight float operations (the
-        # upsample's two products and sum in each direction, the quantise)
-        n_out = sum(f3.numel() * 3 for f3, _ in levels)
-        nbytes = sum(f3.numel() * 4 + f4.numel() * 4 for f3, f4 in levels)
-        bnd = bound(nbytes, n_out * 8)
-        dev = device_ms(kernel, 20 if b == 8 else 3)
-        times[b] = {"kernel_ms": median_ms(kernel, 20),
-                    "plain_ms": median_ms(plain, 5), "device_ms": dev,
-                    "device_ms_per_image": dev / b, "bytes": nbytes,
-                    "bound_ms": bnd[0], "bound_by": bnd[1],
-                    "share_of_bound": bnd[0] / dev}
-        del levels
-        torch.cuda.empty_cache()
-    emit({"phase": "neck_kernel", "canvas": [480, 640],
-          "channels": [256, 512], "results": results, "max_abs_err": err,
-          "timing": "kernel_ms, plain_ms: CUDA events around one call of "
-                    "the four scales, median; device_ms: the call replayed "
-                    "in a CUDA graph (20 calls at B=8, 3 at B=64) between "
-                    "one pair of events, median of 5",
-          "calls": {f"B{b}": t for b, t in times.items()}})
-    if any(r["codes_differing"] for r in results.values()):
-        raise AssertionError(f"int8 neck kernel disagrees with its plain "
-                             f"version: {results}")
-    t8, t64 = times[8], times[64]
-    return err, (t8["kernel_ms"], t8["plain_ms"]), (
-        t8["bound_ms"], t8["bound_by"]), None, {
-        "shape_timed": "kitti's 4 scales of 480x640, B=8, a call",
-        "device_ms": t8["device_ms"],
-        "share_of_bound": t8["share_of_bound"],
-        "B64": {k: t64[k] for k in ("kernel_ms", "plain_ms", "device_ms",
-                                    "bound_ms", "share_of_bound")}}
 
 
 def request_images(n, canvas_hw, seed):
@@ -1117,161 +544,6 @@ def init_quant_model(cfg, calib, backend="fused", seed=0, loc_bias=0.0):
     return model.eval()
 
 
-def empty_launch_ms(grid_x: int, grid_y: int, block: int) -> float:
-    """Device time of an empty kernel of that grid and block
-    (csrc/floor.cu), read as ``device_ms`` reads a kernel: what the launch
-    alone costs before any work."""
-    import ctypes
-
-    import torch
-
-    from densebox_tpu_torch.ops.kernels import build
-
-    fn = build.load("floor").densebox_empty_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def launch():
-        rc = fn(grid_x, grid_y, block, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"empty launch failed with CUDA error {rc}")
-
-    return device_ms(launch)
-
-
-# (case, B, S, L, Hm, Wm, D, win, shared origins): the MALF serve shape (the
-# 5-scale pyramid of a 480x640 canvas; scale 1.4142 gives the largest map,
-# 170x228), the bench's lm4 shape (one scale, 120x160, anchor-less), a
-# ragged one (34- and 68-byte rows: the element kernel) and a short window
-# (16-byte rows in bf16: one vector a row)
-WINDOW_CASES = [("malf", 8, 5, 5, 170, 228, 64, 32, False),
-                ("lm4", 8, 1, 4, 120, 160, 64, 32, True),
-                ("ragged", 3, 2, 3, 37, 29, 5, 17, False),
-                ("short", 2, 2, 3, 21, 27, 9, 8, True)]
-
-
-def window_inputs(rng, b, s, num_lm, hm, wm, d, win, shared, dtype):
-    import torch
-
-    maps = torch.from_numpy(rng.standard_normal((b, s, num_lm, hm, wm))
-                            .astype(np.float32)).cuda().to(dtype)
-    lo = 1 if shared else num_lm
-    idx = [rng.randint(0, s, (b, d)), rng.randint(0, hm - win + 1, (b, d, lo)),
-           rng.randint(0, wm - win + 1, (b, d, lo))]
-    return [maps] + [torch.from_numpy(a.astype(np.int32)).cuda() for a in idx]
-
-
-def window_edge_inputs(rng, win, shared, dtype):
-    """Windows on every edge of an odd-sized map, at every column offset
-    modulo 8 from both sides (every byte shift of the realigned copy, odd
-    and even), and maps that start one element into their storage (the
-    source off a 16-byte boundary even at column 0)."""
-    import torch
-
-    b, s, num_lm, hm, wm = 2, 2, 3, 45, 53
-    flat = torch.from_numpy(rng.standard_normal(b * s * num_lm * hm * wm + 1)
-                            .astype(np.float32)).cuda().to(dtype)
-    maps = flat[1:].view(b, s, num_lm, hm, wm)
-    xs = list(range(8)) + [wm - win - k for k in range(8)]
-    ys = [0, hm - win, 1, hm - win - 1]
-    d = len(xs) * len(ys)
-    lo = 1 if shared else num_lm
-    y0 = np.repeat(ys, len(xs))[None, :, None] + np.zeros((b, d, lo), int)
-    x0 = np.tile(xs, len(ys))[None, :, None] + np.zeros((b, d, lo), int)
-    if not shared:                     # another offset per landmark channel
-        x0 = (x0 + np.arange(lo)) % (wm - win + 1)
-    sel = rng.randint(0, s, (b, d))
-    return [maps] + [torch.from_numpy(a.astype(np.int32)).cuda()
-                     for a in (sel, y0, x0)]
-
-
-def phase_window():
-    import torch
-
-    from densebox_tpu_torch.ops.kernels import window as kw
-
-    rng = np.random.RandomState(13)
-    results, timed = [], {}
-
-    def check(name, shape, shared, dtype, inputs, win):
-        got = kw.gather_windows(*inputs, win)
-        path = kw.last_path
-        want = kw.gather_windows_reference(*inputs, win)
-        torch.cuda.synchronize()
-        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        same = bool(torch.equal(got.view(bits), want.view(bits)))
-        dt = str(dtype).split(".")[-1]
-        rows = (win * inputs[0].element_size()) % 16 == 0
-        results.append({"case": name, "shape": shape, "shared": shared,
-                        "dtype": dt, "bitwise_equal": same, "kernel": path,
-                        "max_abs_err": float((got.float() - want.float())
-                                             .abs().max())})
-        if not same or path != ("rows" if rows else "elements"):
-            emit({"phase": "window_kernel", "results": results})
-            raise AssertionError(f"window kernel disagrees with its plain "
-                                 f"version or took the other copy "
-                                 f"({name}, {dt}, {path})")
-
-    for name, *shape, shared in WINDOW_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            inputs = window_inputs(rng, *shape, shared, dtype)
-            check(name, shape, shared, dtype, inputs, shape[-1])
-            if name in ("malf", "lm4"):
-                timed[name, dtype] = inputs + [shape[-1]]
-    for win in (8, 17, 32):
-        for shared in (False, True):
-            for dtype in (torch.bfloat16, torch.float32):
-                check("edges", [2, 2, 3, 45, 53, 64, win], shared, dtype,
-                      window_edge_inputs(rng, win, shared, dtype), win)
-    # origins from win before the map to win past it: both kernels move them
-    # into the map as the plain version does
-    for win in (8, 17):
-        for dtype in (torch.bfloat16, torch.float32):
-            shape = [2, 2, 3, 37, 45, 50, win]
-            inputs = window_inputs(rng, *shape, False, dtype)
-            for k, size in ((2, 37), (3, 45)):
-                inputs[k] = torch.from_numpy(
-                    rng.randint(-win, size + 1, (2, 50, 3)).astype(np.int32)
-                ).cuda()
-            check("outside", shape, False, dtype, inputs, win)
-    args = timed["malf", torch.bfloat16]
-    times = (device_ms(lambda: kw.gather_windows(*args)),
-             median_ms(lambda: kw.gather_windows_reference(*args), 20))
-    # the library call: one torch.take of the flat maps at an index of
-    # every window element, built beforehand
-    maps, sel, y0, x0, win = args
-    _, n_s, n_l, hm, wm = maps.shape
-    ar = torch.arange(win, device="cuda")
-    rows = (y0.long().clamp(0, hm - win)[..., None] + ar)[..., :, None]
-    cols = (x0.long().clamp(0, wm - win)[..., None] + ar)[..., None, :]
-    plane = ((torch.arange(maps.shape[0], device="cuda")[:, None, None]
-              * n_s + sel.long()[:, :, None]) * n_l
-             + torch.arange(n_l, device="cuda"))[..., None, None]
-    flat = (plane * hm + rows) * wm + cols
-    if not torch.equal(torch.take(maps, flat), kw.gather_windows(*args)):
-        raise AssertionError("window library call differs from the kernel")
-    library_ms = device_ms(lambda: torch.take(maps, flat))
-    device = {f"{n}_{str(dt).split('.')[-1]}":
-              device_ms(lambda: kw.gather_windows(*a))
-              for (n, dt), a in timed.items()}
-    err = max(r["max_abs_err"] for r in results)
-    # the windows read and written (bf16) and the int32 indices
-    _, b, _, num_lm, _, _, d, win, _ = WINDOW_CASES[0]
-    bnd = bound(2 * b * d * num_lm * win * win * 2
-                + b * d * (1 + 2 * num_lm) * 4, 0)
-    floor_ms = empty_launch_ms(b * d, 1, 256)
-    emit({"phase": "window_kernel", "results": results, "max_abs_err": err,
-          "device_ms": device,
-          "event_ms_malf_bf16": {
-              "kernel": median_ms(lambda: kw.gather_windows(*args), 50),
-              "plain": times[1]},
-          "bound_ms_malf_bf16": bnd[0],
-          "library_ms_malf_bf16": library_ms,
-          "library_call": "torch.take(maps, index) with a prebuilt index",
-          "empty_launch_ms_grid512_block256": floor_ms})
-    return err, times, bnd, library_ms, {"floor_ms": floor_ms}
-
-
 def phase_decode_card_vs_cpu():
     """Everything after the forward on the card and on the CPU, on the
     same maps; identical results, the scale selection's flips counted."""
@@ -1311,7 +583,7 @@ def phase_decode_card_vs_cpu():
           "std_sel_differing": int((sel_cpu != sel_card.cpu())[valid].sum()),
           "std_sel_compared": int(valid.sum()), "cpu_seconds": cpu_s})
     if not valid.any() or not want["lm_valid"].any():
-        raise AssertionError("phase 14 decoded no detection or no landmark")
+        raise AssertionError("phase 10 decoded no detection or no landmark")
     if not all(same.values()):
         raise AssertionError(f"landmark detect on the card differs from the "
                              f"CPU on the same maps: {same}")
@@ -1453,414 +725,20 @@ def phase_serve(name, model_cfg, infer_cfg, label_cfg, quant=None,
     return launches
 
 
-# --- the train step (phases 17-21) -----------------------------------------
-
-# published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): the
-# yardsticks of `bound_ms`
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
-
-
-def bound(nbytes: float, ops: float, kind: str = "f32"):
-    """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes over the memory rate and the operations over the peak rate
-    of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-LM_R2 = (0.0, 0.25, 1.0, 2.25, 6.25)     # squared radii of the edge cases
-
-
-def label_rows(rng, b, k, m, num_lm, quarter=False):
-    """Packed rasterizer rows: box rows (B, K, 8) = [cx, cy, rc2, rg2, x1,
-    y1, x2, y2] and landmark rows (B, K*L, 3) = [lx, ly, r2], float32. Half
-    the centres and radii are integers, so that pixels lie exactly on a
-    disc's rim (d2 == rc2); a quarter of the slots are never positive (out
-    of band), an eighth never gray either (invalid); patch 0 is empty; patch
-    1 holds two boxes with one centre and two whose centres are equidistant
-    from a column of pixels. With ``quarter`` every centre and radius lies
-    on the quarter-pixel grid (rims everywhere) and the landmarks' squared
-    radii come from ``LM_R2``."""
-    c = rng.uniform(0, m, (b, k, 2))
-    r = rng.uniform(0.5, m / 4, (b, k))
-    integer = rng.rand(b, k) < 0.5
-    c = np.where(integer[..., None], np.round(c), c)
-    r = np.where(integer, np.maximum(np.round(r), 1), r)
-    if quarter:
-        c, r = np.round(c * 4) / 4, np.maximum(np.round(r * 4) / 4, 0.25)
-    kind = rng.rand(b, k)
-    rc2 = np.where(kind < 0.25, -1.0, r * r)
-    rg2 = np.where(kind < 0.125, -1.0, (r + 2) ** 2)
-    half = rng.uniform(1, m / 3, (b, k, 2))
-    rows = np.stack([c[..., 0], c[..., 1], rc2, rg2,
-                     c[..., 0] - half[..., 0], c[..., 1] - half[..., 1],
-                     c[..., 0] + half[..., 0], c[..., 1] + half[..., 1]], -1)
-    rows[0, :, 2:4] = -1.0
-    if b > 1 and k >= 4:
-        rows[1, 0, :4] = [m // 2, m // 2, 9.0, 25.0]
-        rows[1, 1, :4] = rows[1, 0, :4]
-        rows[1, 2, :4] = [2.0, 3.0, 16.0, 36.0]
-        rows[1, 3, :4] = [6.0, 3.0, 16.0, 36.0]
-    n = k * num_lm
-    r2 = (rng.choice(LM_R2, (b, n, 1)) if quarter else np.ones((b, n, 1)))
-    lm = np.concatenate([rng.uniform(-2, m + 2, (b, n, 2)),
-                         np.where(rng.rand(b, n, 1) < 0.3, -1.0, r2)], -1)
-    lm[:, ::2, :2] = np.round(lm[:, ::2, :2])      # rim-exact: d2 == 1
-    if quarter:
-        lm[..., :2] = np.round(lm[..., :2] * 4) / 4
-    return rows.astype(np.float32), lm.astype(np.float32)
-
-
-def landmark_edge_rows(m, num_lm, k, chunk):
-    """Landmark rows (B, K*L, 3) that put a centre at every quarter pixel
-    from 3 above to 3 below each map row where a block's chunk of ``chunk``
-    output floats ends, at columns inside, on the rim of and outside the
-    map, with every squared radius of ``LM_R2``."""
-    row_len = m * num_lm
-    edges = sorted({e // row_len for e in range(chunk, m * row_len, chunk)}
-                   | {0, m - 1})
-    xs = (-2.0, -0.25, 0.0, 0.25, m / 2 + 0.5, m - 1.0, m - 0.75, m + 2.0)
-    rows = [(x, e + q / 4, r2) for e in edges for q in range(-12, 13)
-            for r2 in LM_R2 for x in xs]
-    per = k * num_lm
-    b = -(-len(rows) // per)
-    out = np.full((b * per, 3), -1.0, np.float32)
-    out[:len(rows)] = rows
-    return out.reshape(b, per, 3)
+# --- the train step (phases 13-15) -----------------------------------------
 
 
 def bits_equal(a, b) -> bool:
+    """Equal shapes, dtypes and bits (floats compared as integers)."""
     import torch
 
-    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
-                                                   b.view(torch.int32)))
-
-
-# (case, B, K, M, L): the training shape, a ragged one, the training shape
-# on the quarter-pixel grid, with every slot invalid, and maps whose size is
-# no multiple of 4 with as many rows as a patch may have (K = 1024 boxes:
-# four staging passes; K * L = 1024 landmark rows)
-RASTER_CASES = [("train", 32, 16, 60, 5), ("ragged", 3, 1, 8, 1),
-                ("quarter_grid", 32, 16, 60, 5), ("all_invalid", 32, 16, 60, 5),
-                ("m125_k1024", 2, 1024, 125, 1), ("m125_kl1024", 2, 256, 125, 4)]
-
-
-def phase_rasterizers():
-    """Phase 17: both rasterizer kernels, each alone and the two in one
-    launch, against their plain versions on the card, bitwise, and the whole
-    ``rasterize`` on the card against the CPU."""
-    import torch
-
-    from densebox_tpu_torch import LabelCfg
-    from densebox_tpu_torch.ops.kernels import labels as kl
-    from densebox_tpu_torch.ops.labels import rasterize
-
-    rng = np.random.RandomState(17)
-    inv = float(np.float32(1.0 / LabelCfg().loc_norm))
-    names = ("score", "loc", "ignore", "lm")
-    results, full = [], None
-
-    def check(case, rows, lm_rows, m, num_lm):
-        got = kl.rasterize_boxes(rows, m, inv) + (
-            kl.rasterize_landmarks(lm_rows, m, num_lm),)
-        both = kl.rasterize_maps(rows, lm_rows, m, inv, num_lm)
-        want = kl.rasterize_boxes_reference(rows, m, inv) + (
-            kl.rasterize_landmarks_reference(lm_rows, m, num_lm),)
-        torch.cuda.synchronize()
-        same = {n: bits_equal(g, w) for n, g, w in zip(names, got, want)}
-        same_both = {n: bits_equal(g, w) for n, g, w in zip(names, both, want)}
-        results.append({"case": case,
-                        "shape": [rows.shape[0], rows.shape[1], m, num_lm],
-                        "bitwise_equal": same,
-                        "one_launch_bitwise_equal": same_both,
-                        "positives": int(got[0].sum()),
-                        "gray": int(got[2].sum()), "lm_pixels": int(got[3].sum()),
-                        "max_abs_err": max(float((g - w).abs().max())
-                                           for g, w in zip(got + both,
-                                                           want + want))})
-        if not all(same.values()) or not all(same_both.values()):
-            emit({"phase": "rasterizer_kernels", "results": results})
-            raise AssertionError(f"a rasterizer kernel disagrees with its "
-                                 f"plain version: {results[-1]}")
-        return got
-
-    for case, b, k, m, num_lm in RASTER_CASES:
-        rows, lm_rows = label_rows(rng, b, k, m, num_lm,
-                                   quarter=case == "quarter_grid")
-        if case == "all_invalid":
-            rows[..., 2:4] = -1.0
-            lm_rows[..., 2] = -1.0
-        rows, lm_rows = torch.from_numpy(rows).cuda(), torch.from_numpy(lm_rows).cuda()
-        got = check(case, rows, lm_rows, m, num_lm)
-        if case == "train":
-            full = (rows, lm_rows, m, num_lm)
-            if not got[0].sum() > 0 or not got[3].sum() > 0:
-                raise AssertionError("the training-shape case drew no "
-                                     "positive pixel")
-        if case == "all_invalid" and any(float(g.abs().sum()) for g in got):
-            raise AssertionError("all-invalid rows gave a non-zero map")
-    # landmark centres at every quarter pixel across the chunks' edges
-    b, k, m, num_lm = RASTER_CASES[0][1:]
-    chunk, chunks = kl.landmark_chunk(m, num_lm, b)
-    edge = torch.from_numpy(landmark_edge_rows(m, num_lm, k, chunk)).cuda()
-    box_rows = torch.from_numpy(label_rows(rng, len(edge), k, m, num_lm,
-                                           quarter=True)[0]).cuda()
-    check("landmarks_on_chunk_edges", box_rows, edge, m, num_lm)
-    # px boxes through pack + kernels on the card against the CPU
-    cfg = LabelCfg()
-    bx = rng.uniform(20, 220, (32, 16, 2))
-    h = rng.uniform(25, 80, (32, 16))
-    w = h * rng.uniform(0.7, 1.3, (32, 16))
-    boxes = torch.from_numpy(np.concatenate(
-        [bx - np.stack([w, h], -1) / 2, bx + np.stack([w, h], -1) / 2],
-        -1).astype(np.float32))
-    valid = torch.from_numpy(rng.rand(32, 16) > 0.5)
-    lms = torch.from_numpy((bx[:, :, None] + rng.uniform(-20, 20, (32, 16, 5, 2))
-                            ).astype(np.float32))
-    lmv = torch.from_numpy(rng.rand(32, 16, 5) > 0.2)
-    on_card = rasterize(boxes.cuda(), valid.cuda(), cfg, lms.cuda(), lmv.cuda())
-    on_cpu = rasterize(boxes, valid, cfg, lms, lmv)
-    same = {n: bits_equal(on_card[n].cpu(), on_cpu[n]) for n in on_cpu}
-    results.append({"case": "px_boxes_card_vs_cpu", "shape": [32, 16, 60, 5],
-                    "bitwise_equal": same,
-                    "positives": int(on_cpu["score"].sum())})
-    rows, lm_rows, m, num_lm = full
-    calls = {
-        "rasterize_boxes": lambda: kl.rasterize_boxes(rows, m, inv),
-        "rasterize_landmarks": lambda: kl.rasterize_landmarks(lm_rows, m,
-                                                              num_lm),
-        "rasterize_maps": lambda: kl.rasterize_maps(rows, lm_rows, m, inv,
-                                                    num_lm)}
-    times = {
-        "rasterize_boxes": (
-            median_ms(calls["rasterize_boxes"], 50),
-            median_ms(lambda: kl.rasterize_boxes_reference(rows, m, inv), 7)),
-        "rasterize_landmarks": (
-            median_ms(calls["rasterize_landmarks"], 50),
-            median_ms(lambda: kl.rasterize_landmarks_reference(
-                lm_rows, m, num_lm), 7))}
-    err = max(r.get("max_abs_err", 0.0) for r in results)
-    b, k = rows.shape[:2]
-    device = {n: device_ms(fn) for n, fn in calls.items()}
-    # an empty kernel of each rasterizer's grid and block (csrc/labels.cu:
-    # 256 threads; boxes: tiles of 32 x 8 pixels, batch in y; landmarks:
-    # the chunks of a patch's output, batch in y; both maps: the wider of
-    # the two grids twice)
-    box_blocks = -(-m // 32) * -(-m // 8)
-    floors = {
-        "rasterize_boxes": empty_launch_ms(box_blocks, b, 256),
-        "rasterize_landmarks": empty_launch_ms(chunks, b, 256),
-        "rasterize_maps": empty_launch_ms(2 * max(box_blocks, chunks), b, 256)}
-
-    def both_launches():
-        calls["rasterize_boxes"]()
-        calls["rasterize_landmarks"]()
-
-    # what a malf step pays for its two maps: two launches, or one
-    two_maps = {"two_launches": {"device_ms": device_ms(both_launches),
-                                 "event_ms": median_ms(both_launches, 50)},
-                "one_launch": {"device_ms": device["rasterize_maps"],
-                               "event_ms": median_ms(calls["rasterize_maps"],
-                                                     50)}}
-    emit({"phase": "rasterizer_kernels", "results": results,
-          "max_abs_err": err,
-          "median_ms": {n: {"kernel": t[0], "plain": t[1]}
-                        for n, t in times.items()},
-          "device_ms": device, "empty_launch_ms_same_grid": floors,
-          "grids": {"rasterize_boxes": [box_blocks, b],
-                    "rasterize_landmarks": [chunks, b],
-                    "landmark_chunk_floats": chunk},
-          "two_maps": two_maps})
-    if not all(same.values()):
-        raise AssertionError(f"rasterize on the card differs from the CPU: "
-                             f"{same}")
-    # what this run's rows need: the box kernel tests every pixel against
-    # the rows that can be positive or gray (12 operations each); the
-    # landmark kernel the pixels within a disc's reach for each row with
-    # r2 >= 0 (7 operations each); both write every output once
-    live = int(((rows[..., 2] >= 0) | (rows[..., 3] >= 0)).sum())
-    lm_live = lm_rows[lm_rows[..., 2] >= 0]
-    lm_tests = float(((2 * lm_live[:, 2].sqrt().ceil() + 1) ** 2).sum())
-    bounds = {
-        "rasterize_boxes": bound(rows.numel() * 4 + b * m * m * 6 * 4,
-                                 live * m * m * 12),
-        "rasterize_landmarks": bound(lm_rows.numel() * 4
-                                     + b * m * m * num_lm * 4, lm_tests * 7)}
-    times = {n: (device[n], t[1]) for n, t in times.items()}
-    return err, times, bounds, {n: floors[n] for n in times}
-
-
-def ohem_case(rng, b, p, kind):
-    """(sq, pos, ign, rnd) inputs of ``ohem_select``: 'random' errors with
-    positives and a gray zone; 'tied' (all errors equal: the noise alone
-    orders the hard half); 'no_pos' (min_neg applies); 'short' (fewer
-    candidates than the quota)."""
-    sq = rng.uniform(0, 2, (b, p)).astype(np.float32) ** 2
-    pos = rng.rand(b, p) < 0.03
-    ign = (rng.rand(b, p) < 0.05) & ~pos
-    if kind == "tied":
-        sq[:] = 0.25
-    elif kind == "no_pos":
-        pos[:] = False
-    elif kind == "short":
-        pos = rng.rand(b, p) < 0.6
-        ign = ~pos & (rng.rand(b, p) < 0.9)
-    return sq, pos, ign, rng.rand(b, p).astype(np.float32)
-
-
-def ohem_forward_case(b):
-    """``ohem_select`` inputs from a real forward: the squared errors of the
-    paper model's score map on a synthetic batch of ``b`` patches (P=3600),
-    its positives and gray zone, and uniforms drawn on the card."""
-    import torch
-
-    from densebox_tpu_torch import kitti_vehicle
-    from densebox_tpu_torch.data import synthetic_batch
-    from densebox_tpu_torch.ops.labels import rasterize
-
-    cfg = kitti_vehicle()
-    gen = torch.Generator(device="cuda").manual_seed(18)
-    batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes)
-    gts = rasterize(batch["boxes"], batch["box_valid"], cfg.label)
-    with torch.inference_mode():
-        score = init_model(cfg.model, "cuda")(batch["image"])["score"]
-    p = score[0].numel()
-    return [((score - gts["score"]) ** 2).reshape(b, p).contiguous(),
-            (gts["score"] > 0.5).reshape(b, p), (gts["ignore"] > 0.5).reshape(b, p),
-            torch.rand((b, p), device="cuda", generator=gen)]
-
-
-def ohem_edge_case(rng, p):
-    """One sample per row whose candidate set is empty, one pixel, as large
-    as the quota (min_neg = 16: n_hard = n_rand = 8, so 8 and 9 bracket the
-    hard quota and 16 and 17 the whole), around the 256 elements one warp
-    finishes on, and all but one pixel; no positives, half the rows with
-    tied errors."""
-    sizes = [0, 1, 8, 9, 16, 17, 255, 256, 257, 300, p - 1, p]
-    b = 2 * len(sizes)
-    sq = rng.uniform(0, 2, (b, p)).astype(np.float32) ** 2
-    sq[len(sizes):] = np.round(sq[len(sizes):] * 2) / 2
-    ign = np.ones((b, p), bool)
-    for i, n in enumerate(sizes * 2):
-        ign[i, rng.permutation(p)[:n]] = False
-    return sq, np.zeros((b, p), bool), ign, rng.rand(b, p).astype(np.float32)
-
-
-def ohem_chain(args):
-    """The longest chain of dependent steps a sample of ``args`` puts on its
-    block under the kernel's schedule (its numpy model): block-wide rounds
-    (4 outside the bisections, then per bisection the counted rounds and the
-    2 barriers around the warp's part) and levels one warp walks alone."""
-    from densebox_tpu_torch.ops.kernels import ohem as ko
-
-    _, calls = ko.reference_bisections(*args, 1.0, 0.5, 16)
-    calls = [[t.cpu().numpy() for t in call] for call in calls]
-    worst = (0, 0)
-    for i in range(len(calls[0][0])):
-        rounds, warp = 4, 0
-        for values, cand, n_want, _ in calls:
-            _, r, w = ko.staged_threshold(values[i], cand[i], int(n_want[i]))
-            rounds += r + (2 if w else 0)
-            warp += w
-        worst = max(worst, (rounds, warp))
-    return {"block_rounds": worst[0], "warp_levels": worst[1]}
-
-
-def phase_ohem():
-    """Phase 18: the OHEM kernel against its plain version on the card,
-    bitwise, at B=32, P=3600 and on the edge sets; device times of the
-    kernel, of two launches against one stacked launch, and of its
-    floors."""
-    import ctypes
-
-    import torch
-
-    from densebox_tpu_torch.ops.kernels import build
-    from densebox_tpu_torch.ops.kernels import ohem as ko
-
-    rng = np.random.RandomState(18)
-    b, p = 32, 3600
-    cases = {kind: [torch.from_numpy(a).cuda()
-                    for a in ohem_case(rng, b, p, kind)]
-             for kind in ("random", "tied", "no_pos", "short")}
-    cases["forward"] = ohem_forward_case(b)
-    cases["edge_sets"] = [torch.from_numpy(a).cuda()
-                          for a in ohem_edge_case(rng, p)]
-    results = []
-    for kind, args in cases.items():
-        want = ko.ohem_select_reference(*args, 1.0, 0.5, 16)
-        got = ko.ohem_select(*args, 1.0, 0.5, 16)
-        torch.cuda.synchronize()
-        results.append({"case": kind, "shape": list(args[0].shape),
-                        "positives": int(args[1].sum()),
-                        "sampled": int(want.sum()),
-                        "mismatches": int((got != want).sum())})
-        if results[-1]["mismatches"] or not want.any():
-            emit({"phase": "ohem_kernel", "results": results})
-            raise AssertionError(f"OHEM kernel disagrees with its plain "
-                                 f"version ({kind})")
-    args = cases["forward"]
-    times = (device_ms(lambda: ko.ohem_select(*args, 1.0, 0.5, 16)),
-             median_ms(lambda: ko.ohem_select_reference(*args, 1.0, 0.5, 16), 5))
-    # a malf step's two terms (score and refined: other errors and uniforms,
-    # the same flags): two launches, or one over the stacked terms
-    sq2 = torch.rand_like(args[0]) ** 2
-    rnd2 = torch.rand_like(args[3])
-
-    def two_launches():
-        ko.ohem_select(*args, 1.0, 0.5, 16)
-        ko.ohem_select(sq2, args[1], args[2], rnd2, 1.0, 0.5, 16)
-
-    def stacked():
-        ko.ohem_select(torch.cat([args[0], sq2]), args[1].repeat(2, 1),
-                       args[2].repeat(2, 1), torch.cat([args[3], rnd2]),
-                       1.0, 0.5, 16)
-
-    terms = {"two_launches": {"device_ms": device_ms(two_launches),
-                              "event_ms": median_ms(two_launches, 50)},
-             "one_stacked_launch": {"device_ms": device_ms(stacked),
-                                    "event_ms": median_ms(stacked, 50)}}
-    # floors: an empty kernel of the kernel's grid and block, and a chain of
-    # dependent block-wide rounds through the kernel's reducer
-    threads = build.load("ohem").densebox_ohem_block_threads(p)
-    chain_fn = build.load("floor").densebox_round_chain
-    chain_fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    chain_fn.restype = ctypes.c_int
-    scratch = torch.empty(b, dtype=torch.int32, device="cuda")
-
-    def chain(rounds):
-        def launch():
-            rc = chain_fn(scratch.data_ptr(), b, threads, rounds,
-                          torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"round chain failed with CUDA error {rc}")
-        return device_ms(launch)
-
-    round_us = (chain(200) - chain(0)) / 200 * 1e3
-    schedule = {kind: ohem_chain(cases[kind]) for kind in ("forward", "tied")}
-    floor_ms = empty_launch_ms(b, 1, threads)
-    bnd = bound(b * p * 11, b * p * 3 * 40 * 2)
-    emit({"phase": "ohem_kernel", "results": results, "max_abs_err": 0.0,
-          "device_ms": {"forward_B32_P3600": times[0],
-                        "tied_B32_P3600": device_ms(
-                            lambda: ko.ohem_select(*cases["tied"], 1.0, 0.5, 16))},
-          "event_ms": {"kernel": median_ms(
-              lambda: ko.ohem_select(*args, 1.0, 0.5, 16), 50),
-              "plain": times[1]},
-          "block_threads": threads,
-          "two_terms": terms, "bound_ms": bnd[0],
-          "empty_launch_ms_same_grid": floor_ms,
-          "block_round_us": round_us,
-          "schedule_worst_sample": schedule,
-          # the launch and the block-wide rounds of the schedule's model; the
-          # warp's levels are not in it
-          "block_rounds_floor_ms_forward": (
-              floor_ms + schedule["forward"]["block_rounds"] * round_us * 1e-3)})
-    # 10 bytes read and 1 written per pixel; three 40-step bisections, each
-    # step one compare and one add per pixel
-    return 0.0, times, bnd, None, {"floor_ms": floor_ms}
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(as_int), b.view(as_int)
+    return bool(torch.equal(a, b))
 
 
 def train_cfgs():
@@ -1872,7 +750,7 @@ def train_cfgs():
 
 
 def phase_step_card_vs_cpu():
-    """Phase 19: one train step on the card against the CPU, full width,
+    """Phase 13: one train step on the card against the CPU, full width,
     f32, B=4, the same state, batch and draws. A float64 step on the CPU
     gives the rounding noise of float32 gradients themselves (measured on
     this run: up to 1e-3 of a tensor's largest entry between the CPU's own
@@ -1979,7 +857,7 @@ def step_card_vs_cpu(phase, name, cfg, b, seed, f64):
 
 
 def phase_step_repeats():
-    """Phase 19, second part: the full-width step (B=32, f32; malf_face
+    """Phase 13, second part: the full-width step (B=32, f32; malf_face
     through the canvas step) taken twice from the same parameters, momentum
     and generator state gives the same parameters, momentum and update norm
     bit for bit; and what the pinning that makes it so
@@ -2052,7 +930,7 @@ def phase_step_repeats():
 
 
 def phase_train(name, cfg, steps, canvas):
-    """Phases 20 and 21: train ``cfg`` at full width on synthetic batches
+    """Phases 14 and 15: train ``cfg`` at full width on synthetic batches
     drawn on the card, B = cfg.train.batch_size. With ``canvas`` the batches
     are 480 px canvases and the step samples its patches on the card.
     Returns the kernels' launch counts over the timed steps and ms/step."""
@@ -2119,7 +997,7 @@ def phase_train(name, cfg, steps, canvas):
 
 
 def phase_fit():
-    """Phase 22: ``fit`` on kitti_vehicle() at full width, B=32, 240 px, on
+    """Phase 16: ``fit`` on kitti_vehicle() at full width, B=32, 240 px, on
     the card by default, fed by a step-keyed stream of synthetic batches,
     into a temporary workdir: 8 steps straight against 4 steps, a restart
     into a new model from the checkpoint, and 4 more."""
@@ -2239,10 +1117,9 @@ def phase_fit():
             not np.isfinite(v) for v in straight.last_metrics.values()):
         raise AssertionError(f"fit: kernel launches {got_launches}, want "
                              f"{want_launches}; metrics {straight.last_metrics}")
-    return launches
 
 
-# --- the command line (phase 23) ------------------------------------------
+# --- the command line (phase 17) ------------------------------------------
 
 KITTI_HW = (375, 1242)          # the image size of the KITTI object set
 KITTI_CANVAS = (384, 1248)      # the CLI's default canvas for it
@@ -2418,7 +1295,7 @@ def served_on_cpu(model, rgb, infer_cfg, label_cfg, max_batch):
 
 
 def phase_cli(bare_ms: float) -> None:
-    """Phase 23: the command line on the card, as a user runs it, on a
+    """Phase 17: the command line on the card, as a user runs it, on a
     KITTI-format directory of PNG files written here."""
     import glob
     import shutil
@@ -2776,7 +1653,7 @@ def phase_cli(bare_ms: float) -> None:
     emit({"phase": "cli_seconds", "seconds": time.perf_counter() - t_phase})
 
 
-# --- multi-device (phase 24) and the 'xla' int8 chain (phase 25) ----------
+# --- multi-device (phase 18) and the 'xla' int8 chain (phase 19) ----------
 
 MULTI_CANVAS = (384, 1248)      # the CLI's KITTI canvas, 4 scales
 
@@ -2872,8 +1749,7 @@ def _multi_rank(rank: int, world: int, workdir: str, n_model: int) -> None:
 
 
 def phase_multi_device(bare_ms: float):
-    """Phase 24 (see the docstring). Returns the launches of the new paths
-    by run, for the kernels line."""
+    """Phase 18 (see the docstring)."""
     import shutil
     import tempfile
 
@@ -2895,7 +1771,6 @@ def phase_multi_device(bare_ms: float):
     gen = torch.Generator(device="cuda").manual_seed(2400)
     batch = synthetic_batch(gen, b, cfg.label, cfg.train.max_boxes)
     root = tempfile.mkdtemp(prefix="densebox_multi_")
-    launches = {}
     try:
         # (a) a one-rank NCCL group in this process: the sharded step against
         # the bare step, bit for bit, from the same state, batch and draws
@@ -2918,7 +1793,7 @@ def phase_multi_device(bare_ms: float):
             reset_launches()
             state, m_sh = step(state, place_batch(batch))
             torch.cuda.synchronize()
-            launches["nccl_world1_step"] = read_launches()
+            launches = read_launches()
             same = (all(torch.equal(v, after[0][k])
                         for k, v in model.state_dict().items())
                     and all(torch.equal(v, after[1][k])
@@ -2964,6 +1839,7 @@ def phase_multi_device(bare_ms: float):
               "patch": cfg.label.patch_size, "tf32": False,
               "sharded_step_bit_equal_to_bare": same,
               "metrics_bit_equal": metrics_same,
+              "launches_sharded_step": launches,
               "ms_per_step_in_turns": turns,
               "bare_ms_phase20": bare_ms,
               "fit_use_mesh_ms_per_step": fit_ms,
@@ -2973,6 +1849,11 @@ def phase_multi_device(bare_ms: float):
         if not same or not all(metrics_same.values()):
             raise AssertionError(f"one-rank NCCL step differs from the bare "
                                  f"step: state {same}, {metrics_same}")
+        want_launch = {"rasterize_boxes": 1, "rasterize_landmarks": 0,
+                       "ohem": 1}
+        if {k: launches[k] for k in want_launch} != want_launch:
+            raise AssertionError(f"one-rank NCCL step: launches {launches}, "
+                                 f"want {want_launch}")
         if kept != ["step_00000006.pt", "step_00000008.pt"] or not all(
                 np.isfinite(v) for v in res.last_metrics.values()):
             raise AssertionError(f"fit(use_mesh): {kept}, {res.last_metrics}")
@@ -3027,9 +1908,6 @@ def phase_multi_device(bare_ms: float):
                                "ohem")} for r in ranks]
             det_launches = [{k: r["launches_detect"][k] for k in
                              ("nms", "window")} for r in ranks]
-            launches[f"{name}_step_rank0"] = ranks[0]["launches_step"]
-            launches[f"spatial{world}_detect_rank0"] = \
-                ranks[0]["launches_detect"]
             emit({"phase": f"multi_{name}_spatial{world}",
                   "processes": world, "backend": "gloo (CUDA tensors), one "
                   "card shared", "mesh": ranks[0]["mesh"],
@@ -3095,11 +1973,10 @@ def phase_multi_device(bare_ms: float):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "multi_seconds", "seconds": time.perf_counter() - t_phase})
-    return launches
 
 
 def phase_xla_int8():
-    """Phase 25: the turbo_int8 cell (B=8, 480 x 640, one scale) with the
+    """Phase 19: the turbo_int8 cell (B=8, 480 x 640, one scale) with the
     JAX package's default chain, ``QuantDenseBox(backend='xla')``."""
     import torch
 
@@ -3183,11 +2060,10 @@ def phase_xla_int8():
     if modes != ["int32"] * 14 or launches["qconv"] != 14 or \
             launches["requant"] != 0 or launches["nms"] != 1:
         raise AssertionError(f"xla int8: modes {modes}, launches {launches}")
-    return launches
 
 
 # a process that loads an artifact with the JAX package and jax blocked and
-# every model forward and detect_batch raising (phase 26)
+# every model forward and detect_batch raising (phase 20)
 FRESH_LOAD = """
 import json, sys
 from unittest import mock
@@ -3224,7 +2100,7 @@ print(json.dumps({"launches": {"nms": nms.launches, "qconv": qconv.launches,
 
 
 def export_cells():
-    """The cells of phase 26 as (name, model config, infer and label
+    """The cells of phase 20 as (name, model config, infer and label
     configs, int8 chain or None, loc bias): turbo_int8 (the int8 serve
     cell), paper and malf_bf16 (the bf16 serve cells)."""
     (_, paper, p_infer, p_label), (_, turbo, t_infer, t_label) = \
@@ -3236,7 +2112,7 @@ def export_cells():
 
 
 def phase_export():
-    """Phase 26: the detect pipeline exported (``export.py``) at full width,
+    """Phase 20: the detect pipeline exported (``export.py``) at full width,
     reloaded and run against the live path; a load in a fresh process with
     no model code; ``cli export`` then ``cli serve --artifact``."""
     import shutil
@@ -3250,13 +2126,12 @@ def phase_export():
                                            export_detect_program,
                                            load_exported, save_exported)
     from densebox_tpu_torch.infer import detect_batch, detector, resize
-    from densebox_tpu_torch.models import densebox as mdb
+    from densebox_tpu_torch.ops import upsample
     from densebox_tpu_torch.ops.kernels import qconv as kq
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="densebox_export_")
     proc = None
-    counts = {}
     try:
         canvas = np.zeros((8, 480, 640, 3), np.float32)
         images = request_images(8, (480, 640), seed=26)
@@ -3277,7 +2152,7 @@ def phase_export():
             # a trace in a process whose constant caches are cold keeps
             # none of the fake tensors it makes: the live path is unchanged
             for cache in (detector._table, resize._weights,
-                          mdb._interp_matrix):
+                          upsample._interp_matrix):
                 cache.cache_clear()
             if quant:
                 model.refresh_constants()
@@ -3322,7 +2197,6 @@ def phase_export():
             for which in ("live", "artifact", "artifact", "live") * 3:
                 times[which] += event_seconds(
                     live if which == "live" else (lambda: call(x)), 5)
-            counts[f"export_{name}"] = art_launches
             emit({"phase": f"export_{name}", "batch": 8,
                   "canvas": [480, 640], "meta": meta,
                   "export_s": export_s, "save_s": save_s, "load_s": load_s,
@@ -3465,10 +2339,9 @@ def phase_export():
             proc.wait(10)
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "export_seconds", "seconds": time.perf_counter() - t_phase})
-    return counts
 
 
-# --- the reference's precision (phase 27), certification (phase 28) ------
+# --- the reference's precision (phase 21), certification (phase 22) ------
 
 @contextlib.contextmanager
 def recording(calls):
@@ -3596,8 +2469,8 @@ def upsample_vs_cpu(x):
     import torch
 
     from densebox_tpu_torch.device import reference_precision
-    from densebox_tpu_torch.models.densebox import (_interp_matrix,
-                                                    upsample2x_align_corners)
+    from densebox_tpu_torch.ops.upsample import (_interp_matrix,
+                                                 upsample2x_align_corners)
 
     def bf16_bmm(t):
         b, h, w, c = t.shape
@@ -3621,7 +2494,7 @@ def upsample_vs_cpu(x):
 
 
 def phase_precision(bare_ms: float) -> None:
-    """Phase 27: the port's precision under torch's own flags (see the
+    """Phase 21: the port's precision under torch's own flags (see the
     module docstring)."""
     import copy
     import shutil
@@ -3644,7 +2517,7 @@ def phase_precision(bare_ms: float) -> None:
     emit({"phase": "precision_flags_at_start", "flags": flags,
           "torch_defaults": TORCH_DEFAULTS})
     if flags != TORCH_DEFAULTS:
-        raise AssertionError(f"precision flags {flags} at phase 27, not "
+        raise AssertionError(f"precision flags {flags} at phase 21, not "
                              f"torch's {TORCH_DEFAULTS}")
     cfg = kitti_vehicle()                       # full width, f32
     root = tempfile.mkdtemp(prefix="densebox_precision_")
@@ -3885,7 +2758,7 @@ def phase_precision(bare_ms: float) -> None:
 
 
 def phase_certify() -> None:
-    """Phase 28: the certification tool on the card, one short row."""
+    """Phase 22: the certification tool on the card, one short row."""
     import shutil
     import tempfile
 
@@ -3925,7 +2798,7 @@ def phase_certify() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-# --- the port's bench and its serve load test (phase 29) -----------------
+# --- the port's bench and its serve load test (phase 23) -----------------
 
 # (run name, bench argv): the README's commands at the published presets
 # and batches (480 x 640): turbo int8 B=256, fast int8 B=128 on both int8
@@ -3989,7 +2862,7 @@ def bench_launches(argv, iters):
 
 
 def phase_bench():
-    """Phase 29: ``python -m densebox_tpu_torch.bench`` in this process
+    """Phase 23: ``python -m densebox_tpu_torch.bench`` in this process
     through its ``main`` at the published presets and batches, one bench
     call of turbo int8 at B=256 held to ``detect_batch`` of its batch, and
     ``python -m densebox_tpu_torch.loadtest --turbo-int8`` at 1, 8, 16 and
@@ -4001,12 +2874,11 @@ def phase_bench():
     from densebox_tpu_torch.serve import DetectServer
 
     t_phase = time.perf_counter()
-    counts = {}
     for name, argv in BENCH_RUNS:
         torch.cuda.empty_cache()
         out, err = run_main(bench.main, argv)
         line, info = json.loads(out[-1]), json.loads(err[-1])
-        counts[f"bench_{name}"] = launches = info["launches_per_pass"]
+        launches = info["launches_per_pass"]
         want = bench_launches(argv, info["iters"])
         emit({"phase": f"bench_{name}", "argv": " ".join(
             ["python -m densebox_tpu_torch.bench"] + argv), "info": info,
@@ -4080,7 +2952,6 @@ def phase_bench():
         "answers": len(answers), "distinct_images": len(alone),
         "answers_not_as_alone_in_slot_0": differ, "launches": launches,
         "launches_expected": want})
-    counts["loadtest"] = launches
     # one closed-loop client has nothing to share a call with: every
     # request is a device call of its own; more clients coalesce
     if ([lv["clients"] for lv in levels] != [1, 8, 16, 32]
@@ -4103,7 +2974,144 @@ def phase_bench():
         for (_, dtype, shape, wshape, _), safe in mdb._slot_safe.items()
         if not safe)})
     emit({"phase": "bench_seconds", "seconds": time.perf_counter() - t_phase})
-    return counts
+
+
+# --- the kernels against their plain versions (phase 24) -------------------
+
+# (name, counter, source in csrc/, the TPU kernel it replaces (none for the
+# int8 neck), the main-path run whose launches the kernels line reads, the
+# shape of its bound: PERF.md's table of kernels)
+KERNEL_ROWS = [
+    ("greedy_nms_keep", "nms", "nms", "nms.py:28", "serve_paper_bf16",
+     "B=8, K=512, random set"),
+    ("qconv_int8", "qconv", "qconv", "qconv.py:59", "serve_turbo_int8_fused",
+     "turbo conv3_2, B=8, int8 out"),
+    ("requant_epilogue", "requant", "requant", "requant.py:35",
+     "serve_turbo_int8_hybrid", "8x120x160x64, int8 out"),
+    ("gather_windows", "window", "window", "window.py:53", "serve_malf_bf16",
+     "MALF: B=8, D=64, L=5, win 32, bf16"),
+    ("rasterize_boxes", "rasterize_boxes", "labels", "labels.py:46",
+     "train_kitti_vehicle", "B=32, K=16, M=60"),
+    ("rasterize_landmarks", "rasterize_landmarks", "labels", "labels.py:79",
+     "train_malf_face", "B=32, K=16, L=5, M=60"),
+    ("ohem_select", "ohem", "ohem", "ohem.py:53", "train_kitti_vehicle",
+     "B=32, P=3600, errors of a forward"),
+    ("int8_neck", "neck", "neck", None, "serve_turbo_int8_fused",
+     "kitti's 4 scales of 480x640, B=8, a call")]
+
+
+def phase_kernels(launches):
+    """Phase 24: each kernel (see the docstring) against its plain version
+    at the main path's shapes, and the kernels line."""
+    import torch
+
+    from densebox_tpu_torch import LabelCfg
+    from densebox_tpu_torch.ops.kernels import labels as kl
+    from densebox_tpu_torch.ops.kernels import neck as kneck
+    from densebox_tpu_torch.ops.kernels import nms as knms
+    from densebox_tpu_torch.ops.kernels import ohem as ko
+    from densebox_tpu_torch.ops.kernels import qconv as kq
+    from densebox_tpu_torch.ops.kernels import requant as kr
+    from densebox_tpu_torch.ops.kernels import window as kw
+
+    cases, differ, bounds = {}, [], {}
+
+    def check(counter, case, got, want):
+        got, want = (tuple(t) if isinstance(t, (tuple, list)) else (t,)
+                     for t in (got, want))
+        torch.cuda.synchronize()
+        cases[counter] = cases.get(counter, 0) + 1
+        if len(got) != len(want) or not all(map(bits_equal, got, want)):
+            differ.append(f"{counter} {case}")
+
+    for b, k in NMS_SHAPES:
+        boxes, valid = nms_set("random", b, k, seed=1)
+        tb, tv = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+        check("nms", f"B{b} K{k}", knms.greedy_keep(tb, tv, 0.5),
+              knms.greedy_keep_reference(tb, tv, 0.5))
+        if (b, k) == (8, 512):
+            bounds["nms"] = nms_bound(valid)
+    rng = np.random.RandomState(5)
+    for name, *shape in QCONV_CASES:
+        # the mode the main path runs the layer in: int8 codes out, f32
+        # from the heads' conv2; kitti's B=64 launch compared on 2 rows
+        x, wq, scale, bias, osc = qconv_inputs(rng, *shape, "cuda")
+        kw_ = dict(relu=False) if shape[4] <= 4 else dict(out_scale=osc)
+        rows = 2 if name in KITTI_OFFLINE else shape[0]
+        kq.reset_launches()
+        got = kq.qconv_int8(x, wq, scale, bias, **kw_)[:rows]
+        if kq.variant_launches != {kq.kernel_variant(*shape[3:]): 1}:
+            differ.append(f"qconv {name} variant {kq.variant_launches}")
+        check("qconv", name, got,
+              kq.qconv_reference(x[:rows], wq, scale, bias, **kw_))
+        del x, got
+    shapes = {name: shape for name, *shape in QCONV_CASES}
+    bounds["qconv"] = qconv_bound(*shapes["turbo_conv3_2"])
+    rng = np.random.RandomState(6)
+    for name, b, h, w, _, cout, _ in QCONV_CASES:
+        if name not in TURBO_LAUNCHES:      # the hybrid call's 14 launches
+            continue
+        acc = torch.from_numpy(rng.randint(-2 ** 20, 2 ** 20, (b, h, w, cout))
+                               .astype(np.int32)).cuda()
+        vecs = [torch.from_numpy(rng.uniform(lo, hi, cout).astype(np.float32))
+                .cuda() for lo, hi in ((1e-6, 3e-6), (-0.5, 0.5), (20, 40))]
+        args = (acc, vecs[0], vecs[1], None if cout <= 4 else vecs[2])
+        check("requant", name, kr.requant_epilogue(*args, relu=cout > 4),
+              kr.requant_reference(*args, relu=cout > 4))
+    bounds["requant"] = requant_bound(8 * 120 * 160 * 64, 64)
+    rng = np.random.RandomState(13)
+    for name, *shape, shared in WINDOW_CASES:
+        inputs = window_inputs(rng, *shape, shared, torch.bfloat16)
+        check("window", name, kw.gather_windows(*inputs, shape[-1]),
+              kw.gather_windows_reference(*inputs, shape[-1]))
+    b, _, num_lm, _, _, d, win = WINDOW_CASES[0][1:-1]
+    bounds["window"] = window_bound(b, num_lm, d, win)
+    b, k, m, num_lm = TRAIN_RASTER
+    rows, lm_rows = (torch.from_numpy(a).cuda() for a in label_rows(
+        np.random.RandomState(17), b, k, m, num_lm))
+    inv = float(np.float32(1.0 / LabelCfg().loc_norm))
+    want = kl.rasterize_boxes_reference(rows, m, inv)
+    want_lm = kl.rasterize_landmarks_reference(lm_rows, m, num_lm)
+    check("rasterize_boxes", "alone", kl.rasterize_boxes(rows, m, inv), want)
+    check("rasterize_landmarks", "alone",
+          kl.rasterize_landmarks(lm_rows, m, num_lm), want_lm)
+    check("rasterize_landmarks", "both maps in one launch",
+          kl.rasterize_maps(rows, lm_rows, m, inv, num_lm),
+          tuple(want) + (want_lm,))
+    bounds["rasterize_boxes"], bounds["rasterize_landmarks"] = \
+        rasterizer_bounds(rows, lm_rows, m, num_lm)
+    args = ohem_forward_case(32)
+    check("ohem", "forward", ko.ohem_select(*args, 1.0, 0.5, 16),
+          ko.ohem_select_reference(*args, 1.0, 0.5, 16))
+    bounds["ohem"] = ohem_bound(*args[0].shape)
+    s3 = torch.tensor(0.0173, device="cuda")
+    for b in (8, 64):
+        levels = neck_levels(b, seed=b)
+        for so in (2.0 ** -5, 0.0219):     # on exact halves, and arbitrary
+            so = torch.tensor(so, device="cuda")
+            for f3, f4 in levels:
+                check("neck", f"B{b} {tuple(f3.shape[1:3])}",
+                      kneck.int8_neck(f3, f4, s3, so),
+                      kneck.neck_reference(f3, f4, s3, so))
+        if b == 8:
+            bounds["neck"] = neck_bound(levels)[:2]
+        del levels
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_against_plain", "cases_equal": cases,
+          "differing": differ})
+    if differ:
+        raise AssertionError(f"kernels differ from their plain versions: "
+                             f"{differ}")
+    emit({"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"densebox_tpu_torch/csrc/{src}.cu",
+         "replaces": (f"densebox_tpu/ops/pallas/{tpu}" if tpu
+                      else "none: XLA fused these steps"),
+         "launches": launches[run][counter], "launches_run": run,
+         "cases_equal_to_plain": cases[counter],
+         "bound_shape": shape, "bound_ms": bounds[counter][0],
+         "bound_by": bounds[counter][1]}
+        for name, counter, src, tpu, run, shape in KERNEL_ROWS]})
 
 
 def cv2_version():
@@ -4113,38 +3121,6 @@ def cv2_version():
     except ImportError:
         return None
     return cv2.__version__
-
-
-def conv_library_ms(args) -> float:
-    """One PyTorch call for the int8 conv's function, as its yardstick: the
-    same int8 values as bf16 through ``F.conv2d`` (cuDNN; int8 codes are
-    exact in bf16, sums in f32), without the requant epilogue; device time,
-    read as the kernel's is."""
-    import torch
-    import torch.nn.functional as F
-
-    x, wq = args[:2]
-    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels_last NCHW
-    wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
-    pad = wq.shape[1] // 2
-    return device_ms(lambda: F.conv2d(xb, wb, padding=pad))
-
-
-def int_mm_library(args) -> dict:
-    """One PyTorch call for a 1x1 int8 layer's int32 accumulator, as the
-    kernel's yardstick: ``torch._int_mm`` (cuBLASLt) of the activations
-    (B*H*W, Cin) and the weights (Cin, Cout), without the epilogue; its
-    device time, read as the kernel's is, and whether it equals the exact
-    product."""
-    import torch
-
-    x, wq = args[:2]
-    a = x.reshape(-1, x.shape[-1])
-    w = wq.reshape(wq.shape[0], -1).t()       # (Cin, Cout), column-major
-    exact = (a.double() @ w.double()).to(torch.int32)   # |sum| < 2**53
-    return {"library_int_mm_ms": device_ms(lambda: torch._int_mm(a, w)),
-            "int_mm_equal": bool(torch.equal(torch._int_mm(a, w), exact)),
-            "library_int_mm": "accumulator only, no epilogue"}
 
 
 def main() -> int:
@@ -4161,7 +3137,7 @@ def main() -> int:
     from densebox_tpu_torch.device import precision_flags
 
     # the script sets no precision flag: the port holds the reference's
-    # precision itself (phase 27), and leaves the flags as it found them
+    # precision itself (phase 21), and leaves the flags as it found them
     TORCH_DEFAULTS.update(precision_flags())
 
     card = card_line()
@@ -4170,84 +3146,43 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     phase_build()
-    # kernel name -> (max_abs_err, (ms, plain_ms), bound, library_ms, further
-    # keys of its entry in the kernels line)
-    rows = {}
-    rows["nms"] = phase_nms()
     phase_forward()
-
-    launches = {name: phase_serve(f"serve_{name}_bf16", *cfgs)
-                for name, *cfgs in serving_cells()}
-    rows["qconv"] = phase_qconv() + ({},)
-    rows["requant"] = phase_requant() + (None, {})
+    launches = {}           # run -> its kernels' launch counts
+    for name, *cfgs in serving_cells():
+        run = f"serve_{name}_bf16"
+        launches[run] = phase_serve(run, *cfgs)
     phase_forward_int8()
-    rows["neck"] = phase_neck()
     _, turbo, turbo_infer, label = serving_cells()[1]
     for quant in ("fused", "hybrid"):
-        launches[quant] = phase_serve(f"serve_turbo_int8_{quant}", turbo,
-                                      turbo_infer, label, quant=quant)
-    rows["window"] = phase_window()
+        run = f"serve_turbo_int8_{quant}"
+        launches[run] = phase_serve(run, turbo, turbo_infer, label,
+                                    quant=quant)
     phase_decode_card_vs_cpu()
     for name, *cfgs, quant in landmark_cells():
-        launches[name] = phase_serve(f"serve_{name}", *cfgs, quant=quant,
-                                     loc_bias=1.0)
-
-    l_err, l_times, l_bounds, l_floors = phase_rasterizers()
-    for name in l_times:
-        rows[name] = (l_err, l_times[name], l_bounds[name], None,
-                      {"floor_ms": l_floors[name]})
-    rows["ohem"] = phase_ohem()
+        launches[f"serve_{name}"] = phase_serve(
+            f"serve_{name}", *cfgs, quant=quant, loc_bias=1.0)
     phase_step_card_vs_cpu()
     phase_step_repeats()
     (_, kitti), (_, malf) = train_cfgs()
-    launches["train_kitti"], bare_ms = phase_train("kitti_vehicle", kitti, 30,
-                                                   False)
-    launches["train_malf"], _ = phase_train("malf_face", malf, 12, True)
-    launches["fit"] = phase_fit()
+    launches["train_kitti_vehicle"], bare_ms = phase_train(
+        "kitti_vehicle", kitti, 30, False)
+    launches["train_malf_face"], _ = phase_train("malf_face", malf, 12, True)
+    phase_fit()
     phase_cli(bare_ms)
-    multi = phase_multi_device(bare_ms)
-    multi["xla_int8_call"] = phase_xla_int8()
-    multi.update(phase_export())
+    phase_multi_device(bare_ms)
+    phase_xla_int8()
+    phase_export()
     phase_precision(bare_ms)
     phase_certify()
-    multi.update(phase_bench())
-
-    # (name, source, TPU kernel it replaces (none for the int8 neck), the
-    # main-path run its launch count is read from, its counter)
-    table = [
-        ("greedy_nms_keep", "nms", "nms.py:28", "paper", "nms"),
-        ("qconv_int8", "qconv", "qconv.py:59", "fused", "qconv"),
-        ("requant_epilogue", "requant", "requant.py:35", "hybrid", "requant"),
-        ("gather_windows", "window", "window.py:53", "malf_bf16", "window"),
-        ("rasterize_boxes", "labels", "labels.py:46", "train_kitti",
-         "rasterize_boxes"),
-        ("rasterize_landmarks", "labels", "labels.py:79", "train_malf",
-         "rasterize_landmarks"),
-        ("ohem_select", "ohem", "ohem.py:53", "train_kitti", "ohem"),
-        ("int8_neck", "neck", None, "fused", "neck")]
+    phase_bench()
+    phase_kernels(launches)
     flags = precision_flags()
     emit({"phase": "precision_flags_at_end", "flags": flags,
           "torch_defaults": TORCH_DEFAULTS})
     if flags != TORCH_DEFAULTS:
         raise AssertionError(f"the precision flags end as {flags}, not as "
                              f"torch started: {TORCH_DEFAULTS}")
-    print(card, flush=True)
-    kernels = []
-    for name, src, replaces, run, counter in table:
-        (err, (ms, plain_ms), (bound_ms, bound_by), library_ms,
-         more) = rows[counter]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"densebox_tpu_torch/csrc/{src}.cu",
-            "replaces": (f"densebox_tpu/ops/pallas/{replaces}" if replaces
-                         else "none: XLA fused these steps"),
-            "launches": launches[run][counter], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, **more,
-            **{f"launches_{run_}": counts[counter]
-               for run_, counts in multi.items()}})
     emit({"phase": "seconds", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
 // Floors for the latency-bound kernels, sm_90a. Not kernels of any path:
-// chip_smoke.py times them (replayed in a CUDA graph, as it times the
+// profile_port.py times them (replayed in a CUDA graph, as it times the
 // kernels) to put beside the roofline bound of the kernels whose bytes and
 // operations take under a microsecond:
 //   - an empty kernel: what a launch of a given grid and block costs on the

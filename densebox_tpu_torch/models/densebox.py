@@ -31,9 +31,7 @@ from torch import nn
 from densebox_tpu_torch.config import ModelCfg
 from densebox_tpu_torch.device import reference_precision, resolve_device
 from densebox_tpu_torch.ops.decode import div
-from densebox_tpu_torch.ops.upsample import (  # noqa: F401
-    _interp_matrix, interp_bmm, interp_matrix_align_corners,
-    upsample2x_align_corners)
+from densebox_tpu_torch.ops.upsample import upsample2x_align_corners
 from densebox_tpu_torch.utils.logging import span
 
 # (kind, name, base_width): the paper trunk, VGG19 through conv4_4.

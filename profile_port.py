@@ -1,43 +1,46 @@
 #!/usr/bin/env python3
-"""Where a device call of the port's serving path, and a train step, spend
-their time.
+"""The port's kernels, and the alternatives no benchmark cell runs, timed
+on the card.
 
-    python3 profile_port.py [--calls 5] [--only int8,qconv]   # repository root, one CUDA card
+    python3 profile_port.py [--calls 5] [--only qconv,small_kernels,nms]   # repository root, one CUDA card
+
+Who does what: ``port_bench`` (``BENCHMARK.json``) measures the serving,
+offline and train cells end to end and splits their time by layer; the
+gpu-marked tests (``tests/test_torch_kernels.py``, ``test_torch_neck.py``)
+hold each kernel to its plain version; ``chip_smoke.py`` drives the
+program's entry points on the card and checks each kernel once at the main
+path's shapes; this script times each kernel alone. The kernels' cases and
+bounds that its probes, the tests and ``chip_smoke.py`` share are in
+``kernel_cases.py``. Device time is CUDA-graph replay (``device_ms``); a
+floor is an empty launch of the kernel's grid (``empty_launch_ms``,
+``csrc/floor.cu``); event and plain ms are one eager call of the kernel
+and of its plain version, by CUDA events (``event_and_plain``), at the
+shape of each kernel's row in PERF.md's table of kernels.
 
 Prints one JSON line per probe, after the card's name and power limit:
-  cell        for each serving cell of chip_smoke.py (paper and turbo, B=8,
-              480x640 canvas, bf16, random weights), for turbo_int8 and
-              turbo_int8_hybrid (the turbo model in int8, calibrated on the
-              profiled batch; fused and hybrid chain) and for its landmark
-              cells malf_bf16 and turbo_int8_lm4: a device call
-              (pinned host batch -> detect -> results on the host) on the
-              host clock around a synchronised call (median, q1, q3 of
-              20), then a
-              torch.profiler trace of --calls calls: kernel time by kind
-              and the top kernels;
-  train       for the two train cells (chip_smoke.py's phases 20 and 21:
-              train_paper = kitti_vehicle(), train_malf = malf_face() through
-              the canvas step; full width, f32 with TF32 off, B=32, 240 px
-              patches, synthetic batches drawn on the card): a step on the
-              host clock around a synchronised step (median, q1, q3 of 10),
-              then a trace of --calls steps: kernel time by kind (forward
-              and backward convolutions, GEMMs, elementwise, the rasterizer
-              and OHEM kernels, the optimizer's foreach kernels); the same
-              two cells again with compute_dtype
-              bfloat16 (float32 parameters cast at use);
   fused_conv  the paper model's conv1_2 at B=8, 480x640, bf16: nn.Conv2d
               and ReLU as the model runs them, against cuDNN's fused
               conv+bias+ReLU (torch.cudnn_convolution_relu), by CUDA events,
               alternated, with the largest difference of their outputs;
   resize      infer/resize.py's einsum form against batched products on
-              NHWC as it lies, at each level of the paper cell's pyramid;
-  qconv       the int8 conv kernel alone: device time (CUDA-graph replay) of
-              every conv shape of the turbo int8 model at B=8, their sum
-              over the 14 launches of a device call, four of them at B = 1
-              to 32 (the cost of a launch and of a round of tiles), and the
-              paper-width int8 forward (B=2, 240x320) on the host clock with
-              its kernel time by kind. Uses only ``qconv_int8`` and ``QuantDenseBox``,
-              so the same script times an older tree of the package.
+              NHWC as it lies, at each level of the paper model's pyramid;
+  qconv       three lines. ``qconv``: the int8 conv kernel's device time at
+              every conv shape of the turbo int8 model (B=8, in the mode the
+              model runs the layer in) beside its bound, the same values
+              through cuDNN's bf16 ``F.conv2d`` and, for the 1x1 layers
+              cuBLASLt takes, ``torch._int_mm`` (the int32 accumulator only,
+              no epilogue), and their sums over the 14 launches of a device
+              call; four of those layers at B = 1 to 32 (the cost of a
+              launch and of a round of tiles); kitti's offline launches at
+              B=64 (5 replayed) beside their least time; and the paper-width
+              int8 forward (B=2, 240x320) on the host clock with its kernel
+              time by kind. ``requant``: ``requant_epilogue`` at the
+              accumulator of each of those 14 launches (a hybrid device
+              call) beside its bound, and the sums. ``int8_neck``: the neck
+              at kitti's four scales of a 480x640 canvas, a call's four
+              launches at B=8 and 64, beside the bound of their bytes. Uses
+              only the kernel wrappers and ``QuantDenseBox``, so the same
+              script times an older tree of the package;
   determinism which kernels of a train step differ run to run, and what
               pinning them costs: for each train cell (f32) the same step
               (same state, batch and generator state) taken three times in
@@ -51,20 +54,27 @@ Prints one JSON line per probe, after the card's name and power limit:
               between runs with the largest difference, whether parameters,
               momentum and ``update_norm`` repeat bit for bit, and ms/step
               of each mode over 10 steps, in turns;
-  export      for turbo_int8 and paper (B=8, 480x640): a device call as in
-              ``cell`` through the live path, through the live path with
+  export      for turbo_int8 and paper (B=8, 480x640): a device call
+              (pinned host batch -> detect -> results on the host, on the
+              host clock) through the live path, through the live path with
               the custom-op dispatch taken out (each wrapper calling its
               CUDA launch directly) and through the artifact
               (``export.py``, exported and loaded here), 20 calls each in
               turns (live, direct, artifact, artifact, direct, live) x 2,
               median (q1, q3); then a trace of --calls artifact calls;
   small_kernels  ``ohem_select`` (B=32, P=3600, errors of the paper model's
-              forward), ``gather_windows`` (the MALF serve shape, bf16 and
-              f32) and the two GT rasterizers (B=32, K=16, M=60, L=5) by
-              device time (CUDA-graph replay), two readings each; for a
-              package that has it, both maps in one launch and the landmark
-              kernel against its blocks a patch. Uses only the wrappers, so
-              the same script times an older tree of the package;
+              forward) beside its bound and two floors: an empty launch of
+              its grid, and that launch plus the chain of block-wide rounds
+              the worst sample needs by the schedule's numpy model;
+              ``gather_windows`` (the MALF serve shape in bf16 and f32, the
+              bench's lm4 shape in bf16) beside its bound, an empty launch
+              of its grid and ``torch.take`` at a prebuilt index; the two GT
+              rasterizers (B=32, K=16, M=60, L=5) beside their bounds and
+              empty launches of their grids, on a train step's rows too,
+              both maps in one launch, and the landmark kernel against its
+              blocks a patch. Two readings of each device time. Uses only
+              the wrappers, so the same script times an older tree of the
+              package;
   slot        for paper bf16, malf_bf16, paper f32 (kitti_vehicle()),
               turbo_int8 and turbo_int8_lm4 at B=8, 480x640 (served
               requests letterboxed): which operations make an image's
@@ -73,18 +83,20 @@ Prints one JSON line per probe, after the card's name and power limit:
               convolutions in several bodies (``conv_variants``); the whole
               forward and the served check for each body, and its device
               call's time (``probe_slot``);
-  nms         the greedy-NMS kernel alone by device time (CUDA-graph
-              replay) at B=8 with K=256, 512 and 1024, B=256 with K=256 and
-              B=64 with K=512, on a random, an all-kept and a chained set,
-              each mask checked against the plain version, beside its
-              bound; and the host's time of a call (wrapper, dispatch,
+  nms         the greedy-NMS kernel alone at B=8 with K=256, 512 and 1024,
+              B=256 with K=256 and B=64 with K=512, on a random, an
+              all-kept and a chained set, each mask checked against the
+              plain version, beside its bound and an empty launch of its
+              grid; and the host's time of a call (wrapper, dispatch,
               launch; 100 enqueued without a synchronisation). Uses only
-              ``greedy_keep``, so the same script times an
-              older tree of the package;
-``--only`` takes a comma-separated subset of the groups serve (paper,
-turbo), int8 (turbo_int8, turbo_int8_hybrid), lm (malf_bf16,
-turbo_int8_lm4), train, fused_conv, resize, qconv, determinism, export,
-small_kernels, slot, nms; the default is all.
+              ``greedy_keep``, so the same script times an older tree of
+              the package.
+At the shape of each kernel's row in PERF.md's table of kernels (NMS at
+B=8, K=512 on the random set; the turbo conv3_2 and its requant; the MALF
+window in bf16; both rasterizers; OHEM; the neck at B=8 and 64) a probe
+adds ``event_ms`` and ``plain_ms`` (``event_and_plain``).
+``--only`` takes a comma-separated subset of the groups fused_conv, resize,
+qconv, determinism, export, small_kernels, slot, nms; the default is all.
 Without a CUDA card it exits 1 and prints no result.
 """
 
@@ -92,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import os
 import sys
@@ -101,46 +114,186 @@ from unittest import mock
 
 import numpy as np
 
-from chip_smoke import (NMS_SHAPES, QCONV_CASES, RASTER_CASES,
-                        TURBO_LAUNCHES, WINDOW_CASES, card_line, device_ms,
-                        emit, event_seconds, init_model, init_quant_model,
-                        label_rows, landmark_cells, median_ms, nms_bound,
-                        nms_set, ohem_forward_case, qconv_inputs,
-                        request_images, serving_cells, train_cfgs,
-                        window_inputs, with_live_threshold)
+from chip_smoke import (card_line, emit, event_seconds, init_model,
+                        init_quant_model, landmark_cells, request_images,
+                        serving_cells, train_cfgs, with_live_threshold)
+from kernel_cases import (KITTI_OFFLINE, NMS_SHAPES, QCONV_CASES, TRAIN_RASTER,
+                          TURBO_LAUNCHES, WINDOW_CASES, label_rows,
+                          neck_bound, neck_levels, nms_bound, nms_set,
+                          ohem_bound, ohem_forward_case, qconv_bound,
+                          qconv_inputs, rasterizer_bounds, requant_bound,
+                          window_bound, window_inputs)
+from port_bench.trace import kernel_kind
 
 CANVAS = (8, 480, 640, 3)
 
 
-def kernel_kind(name: str) -> str:
-    """Bucket of a CUDA kernel (or copy) by its name in the trace."""
-    n = name.lower()
-    for kind, keys in (
-            ("nms_kernel", ("nms_kernel",)),
-            ("int8_conv_kernel", ("qconv_kernel", "qconv_mma_kernel",
-                                  "qconv_dp4a_kernel")),
-            ("requant_kernel", ("requant_kernel",)),
-            ("window_kernel", ("window_rows_kernel", "window_elem_kernel",
-                               "window_kernel")),
-            ("rasterizer_kernel", ("boxes_kernel", "landmarks_kernel",
-                                   "maps_kernel")),
-            ("ohem_kernel", ("ohem_kernel",)),
-            ("optimizer", ("multi_tensor_apply",)),
-            ("sort", ("sort", "radix")),
-            ("max_pool", ("max_pool",)),
-            ("relu", ("clamp",)),
-            ("add", ("functor_add",)),        # mostly nn.Conv2d's bias
-            ("conv_backward", ("dgrad", "wgrad", "bprop", "backward_data",
-                               "backward_filter", "bwd")),
-            ("conv", ("conv", "cudnn", "implicit", "xmma_fprop")),
-            ("gemm", ("gemm", "cutlass", "matmul", "nvjet")),
-            ("copy", ("memcpy", "memset")),
-            ("elementwise", ("vectorized_elementwise_kernel",
-                             "native::elementwise_kernel",
-                             "unrolled_elementwise_kernel"))):
-        if any(k in n for k in keys):
-            return kind
-    return "other"
+# --- timing ------------------------------------------------------------------
+
+def median_ms(fn, reps: int) -> float:
+    """Median device time of one call, by CUDA events, after a warm-up."""
+    return float(np.median(event_seconds(fn, reps))) * 1e3
+
+
+def event_and_plain(kernel, plain, plain_reps: int = 10) -> dict:
+    """An eager call of the kernel and of its plain version on the same
+    inputs, by CUDA events (``median_ms``): the wrapper's host time shows in
+    the first, and the second is what the kernel replaced."""
+    return {"event_ms": median_ms(kernel, 50),
+            "plain_ms": median_ms(plain, plain_reps)}
+
+
+def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured into a
+    CUDA graph, the graph replayed between one pair of events, the median of
+    ``reps`` replays over ``launches``. A replay costs the host one launch,
+    so the events bracket the kernels and not their enqueue (an event pair
+    around one eager call of a 10 us kernel reads mostly the wrapper).
+    Inputs and outputs stay in the L2 cache from launch to launch."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the default stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def _floor_launch(entry: str, argtypes, *args) -> float:
+    """``device_ms`` of one of ``csrc/floor.cu``'s launches: ``entry``
+    called with ``args`` and the current stream."""
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import build
+
+    fn = getattr(build.load("floor"), entry)
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} failed with CUDA error {rc}")
+
+    return device_ms(launch)
+
+
+def empty_launch_ms(grid_x: int, grid_y: int, block: int) -> float:
+    """An empty kernel of that grid and block: what the launch alone costs
+    before any work."""
+    return _floor_launch("densebox_empty_launch", [ctypes.c_int] * 3,
+                         grid_x, grid_y, block)
+
+
+def round_chain_ms(batch: int, threads: int, rounds: int) -> float:
+    """``rounds`` dependent block-wide rounds through
+    ``csrc/block_reduce.cuh`` in ``batch`` blocks of ``threads`` and nothing
+    else: what the counts of ``csrc/ohem.cu``'s bisections cost."""
+    import torch
+
+    scratch = torch.empty(batch, dtype=torch.int32, device="cuda")
+    return _floor_launch("densebox_round_chain",
+                         [ctypes.c_void_p] + [ctypes.c_int] * 3,
+                         scratch.data_ptr(), batch, threads, rounds)
+
+
+DEVICE_TIMING = ("device time: 20 launches replayed as a CUDA graph between "
+                 "one pair of events, median of 5")
+
+
+def ohem_chain(args):
+    """The longest chain of dependent steps a sample of ``args`` puts on its
+    block under the kernel's schedule (its numpy model): block-wide rounds
+    (4 outside the bisections, then per bisection the counted rounds and the
+    2 barriers around the warp's part) and levels one warp walks alone."""
+    from densebox_tpu_torch.ops.kernels import ohem as ko
+
+    _, calls = ko.reference_bisections(*args, 1.0, 0.5, 16)
+    calls = [[t.cpu().numpy() for t in call] for call in calls]
+    worst = (0, 0)
+    for i in range(len(calls[0][0])):
+        rounds, warp = 4, 0
+        for values, cand, n_want, _ in calls:
+            _, r, w = ko.staged_threshold(values[i], cand[i], int(n_want[i]))
+            rounds += r + (2 if w else 0)
+            warp += w
+        worst = max(worst, (rounds, warp))
+    return {"block_rounds": worst[0], "warp_levels": worst[1]}
+
+
+# --- yardsticks: one library call for the same function -----------------------
+
+def conv_library_ms(args) -> float:
+    """One PyTorch call for the int8 conv's function, as its yardstick: the
+    same int8 values as bf16 through ``F.conv2d`` (cuDNN; int8 codes are
+    exact in bf16, sums in f32), without the requant epilogue; device time,
+    read as the kernel's is."""
+    import torch
+    import torch.nn.functional as F
+
+    x, wq = args[:2]
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels_last NCHW
+    wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    pad = wq.shape[1] // 2
+    return device_ms(lambda: F.conv2d(xb, wb, padding=pad))
+
+
+def int_mm_library(args) -> dict:
+    """One PyTorch call for a 1x1 int8 layer's int32 accumulator, as the
+    kernel's yardstick: ``torch._int_mm`` (cuBLASLt) of the activations
+    (B*H*W, Cin) and the weights (Cin, Cout), without the epilogue; its
+    device time, read as the kernel's is, and whether it equals the exact
+    product."""
+    import torch
+
+    x, wq = args[:2]
+    a = x.reshape(-1, x.shape[-1])
+    w = wq.reshape(wq.shape[0], -1).t()       # (Cin, Cout), column-major
+    exact = (a.double() @ w.double()).to(torch.int32)   # |sum| < 2**53
+    return {"library_int_mm_ms": device_ms(lambda: torch._int_mm(a, w)),
+            "int_mm_equal": bool(torch.equal(torch._int_mm(a, w), exact)),
+            "library_int_mm": "accumulator only, no epilogue"}
+
+
+def window_library(maps, sel, y0, x0, win) -> dict:
+    """One PyTorch call for ``gather_windows``, as its yardstick: one
+    ``torch.take`` of the flat maps at an index of every window element,
+    built beforehand; its device time, read as the kernel's is, and whether
+    it equals the kernel's windows."""
+    import torch
+
+    from densebox_tpu_torch.ops.kernels.window import gather_windows
+
+    _, n_s, n_l, hm, wm = maps.shape
+    ar = torch.arange(win, device="cuda")
+    rows = (y0.long().clamp(0, hm - win)[..., None] + ar)[..., :, None]
+    cols = (x0.long().clamp(0, wm - win)[..., None] + ar)[..., None, :]
+    plane = ((torch.arange(maps.shape[0], device="cuda")[:, None, None]
+              * n_s + sel.long()[:, :, None]) * n_l
+             + torch.arange(n_l, device="cuda"))[..., None, None]
+    flat = (plane * hm + rows) * wm + cols
+    return {"library_take_ms": device_ms(lambda: torch.take(maps, flat)),
+            "take_equal": bool(torch.equal(
+                torch.take(maps, flat),
+                gather_windows(maps, sel, y0, x0, win))),
+            "library_call": "torch.take(maps, index) with a prebuilt index"}
 
 
 def host_times(fn, reps: int):
@@ -196,24 +349,6 @@ def trace_calls(call, calls):
             "top_kernels_ms_launches_per_call": sorted(top)[::-1][:12]}
 
 
-def probe_cell(name, model_cfg, infer_cfg, label_cfg, host, calls,
-               quant=None, loc_bias=0.0):
-    from densebox_tpu_torch.infer import make_detect_fn
-
-    model = (init_quant_model(model_cfg, host.cuda(), quant, loc_bias=loc_bias)
-             if quant else init_model(model_cfg, "cuda", loc_bias=loc_bias))
-    infer_cfg = with_live_threshold(model, host.cuda(), infer_cfg)
-    detect = make_detect_fn(model, infer_cfg, label_cfg)
-
-    def call():
-        out = detect(host.to("cuda", non_blocking=True))
-        return {k: v.cpu() for k, v in out.items()}
-
-    res = {"probe": "cell", "cell": name, "device_call_ms": host_ms(call, 20)}
-    res.update(trace_calls(call, calls))
-    return res
-
-
 def probe_export(name, model_cfg, infer_cfg, label_cfg, host, calls, quant):
     """A serving cell's device call through the live path, the live path
     without the custom-op dispatch, and its exported artifact."""
@@ -264,40 +399,6 @@ def probe_export(name, model_cfg, infer_cfg, label_cfg, host, calls, quant):
             "timing": "host clock around a synchronised call (pinned batch "
                       "in, results on the host), 20 calls each in turns",
             "artifact_trace": trace_calls(through(artifact), calls)}
-
-
-def probe_train(name, cfg, canvas, calls):
-    """A train cell: the step of chip_smoke.py's phase 20 (patch batches) or
-    21 (``canvas``: 480 px canvases, patches sampled on the card)."""
-    import torch
-
-    from densebox_tpu_torch import DenseBox
-    from densebox_tpu_torch.data import synthetic_batch
-    from densebox_tpu_torch.train import (create_train_state,
-                                          make_canvas_train_step,
-                                          make_train_step)
-
-    data_label = (dataclasses.replace(cfg.label, patch_size=480) if canvas
-                  else cfg.label)
-    model = DenseBox(cfg.model)
-    state = create_train_state(model, cfg)
-    step = (make_canvas_train_step if canvas else make_train_step)(model, cfg)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def call():
-        batch = synthetic_batch(gen, cfg.train.batch_size, data_label,
-                                cfg.train.max_boxes, cfg.model.num_landmarks)
-        return step(state, batch)[1]
-
-    call()                                   # cuDNN picks its algorithms
-    res = {"probe": "train", "cell": name,
-           "compute_dtype": cfg.model.compute_dtype,
-           "batch": cfg.train.batch_size, "patch": cfg.label.patch_size,
-           "canvas": 480 if canvas else None, "step_ms": host_ms(call, 10)}
-    res["steps_per_s"] = 1e3 / res["step_ms"][0]
-    res.update(trace_calls(call, calls))
-    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    return res
 
 
 def probe_fused_conv(model_cfg):
@@ -365,23 +466,54 @@ def probe_resize(infer_cfg, host):
 
 def probe_qconv():
     """The int8 conv kernel's device time at every conv shape of the turbo
-    int8 model (B=8, in the mode the model runs the layer in), and the
+    int8 model (B=8, in the mode the model runs the layer in) beside its
+    bound and the library calls, at kitti's offline shapes (B=64), and the
     paper-width int8 forward."""
     import torch
 
     from densebox_tpu_torch import kitti_vehicle
-    from densebox_tpu_torch.ops.kernels.qconv import qconv_int8
+    from densebox_tpu_torch.ops.kernels import qconv as kq
 
     rng = np.random.RandomState(5)
-    layers = {}
+    layers, kitti = {}, {}
     for name, *shape in QCONV_CASES:
-        if name not in TURBO_LAUNCHES:
-            continue
+        b, h, w, cin, cout, k = shape
         x, wq, scale, bias, osc = qconv_inputs(rng, *shape, "cuda")
-        kw = dict(relu=False) if shape[4] <= 4 else dict(out_scale=osc)
-        layers[name] = [device_ms(lambda: qconv_int8(x, wq, scale, bias, **kw))
-                        for _ in range(2)]
-    per_call = sum(min(v) * TURBO_LAUNCHES[k] for k, v in layers.items())
+        variant = kq.kernel_variant(cin, cout, k)
+        if name in KITTI_OFFLINE:
+            # the offline chain's mode (int8 codes out), port_bench's bytes
+            bnd = qconv_bound(*shape)
+            ms = [device_ms(lambda: kq.qconv_int8(x, wq, scale, bias, osc),
+                            launches=5) for _ in range(2)]
+            kitti[name] = {"variant": variant, "plan": dict(kq.last_plan),
+                           "device_ms": ms, "launches_replayed": 5, "bound_ms": bnd[0],
+                           "bound_by": bnd[1],
+                           "roofline_share_pct": 100.0 * bnd[0] / min(ms)}
+            continue
+        # the mode the model runs the layer in (f32 from the heads' conv2)
+        f32_out = cout <= 4
+        kw = dict(relu=False) if f32_out else dict(out_scale=osc)
+        args = (x, wq, scale, bias)
+        bnd = qconv_bound(*shape, f32_out)
+        layers[name] = {
+            "variant": variant, "mode": "f32" if f32_out else "int8",
+            "device_ms": [device_ms(lambda: kq.qconv_int8(*args, **kw))
+                          for _ in range(2)],
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_bf16_conv_ms": conv_library_ms(args),
+            "launches_per_call": TURBO_LAUNCHES[name]}
+        if k == 1 and cin % 8 == 0 and cout % 8 == 0:
+            layers[name].update(int_mm_library(args))
+        if name == "turbo_conv3_2":
+            layers[name].update(event_and_plain(
+                lambda: kq.qconv_int8(*args, **kw),
+                lambda: kq.qconv_reference(*args, **kw)))
+
+    def per_call(key, names=layers):
+        return sum(min(np.atleast_1d(layers[n][key]))
+                   * layers[n]["launches_per_call"] for n in names)
+
+    mm = [n for n, v in layers.items() if "library_int_mm_ms" in v]
     # device time against the batch: what a launch costs before its first
     # tile is done, and what each further round of tiles adds
     scaling = {}
@@ -391,7 +523,7 @@ def probe_qconv():
         for b in (1, 2, 4, 8, 16, 32):
             x, wq, scale, bias, osc = qconv_inputs(rng, b, *shape[1:], "cuda")
             scaling.setdefault(name, {})[f"B{b}"] = device_ms(
-                lambda: qconv_int8(x, wq, scale, bias, out_scale=osc))
+                lambda: kq.qconv_int8(x, wq, scale, bias, out_scale=osc))
     cfg = dataclasses.replace(kitti_vehicle().model, compute_dtype="bfloat16")
     x = torch.from_numpy(np.random.RandomState(7).rand(2, 240, 320, 3)
                          .astype(np.float32)).cuda()
@@ -401,13 +533,101 @@ def probe_qconv():
         with torch.inference_mode():
             return model(x)
 
-    res = {"probe": "qconv", "batch": 8, "device_ms_two_readings": layers,
-           "per_device_call_14_launches_ms": per_call,
+    res = {"probe": "qconv", "batch": 8, "timing": DEVICE_TIMING,
+           "layers": layers,
+           "per_device_call_14_launches": {
+               "device_ms": per_call("device_ms"),
+               "bound_ms": per_call("bound_ms"),
+               "library_bf16_conv_ms": per_call("library_bf16_conv_ms"),
+               "int_mm_layers": {
+                   "device_ms": per_call("device_ms", mm),
+                   "library_int_mm_ms": per_call("library_int_mm_ms", mm)}},
            "device_ms_by_batch": scaling,
+           "kitti_offline_b64": kitti,
            "paper_int8_forward": {"input": list(x.shape),
                                   "forward_ms": host_ms(call, 10)}}
     res["paper_int8_forward"].update(trace_calls(call, 3))
     return res
+
+
+def probe_requant():
+    """``requant_epilogue`` at the accumulator of every conv of a hybrid
+    device call of the turbo int8 model (B=8), in the mode the model runs
+    the layer in, beside its bound (int32 in, int8 or f32 out, three float
+    vectors; five float operations an element), and the sums over the
+    call's 14 launches."""
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import requant as kr
+
+    rng = np.random.RandomState(6)
+    layers = {}
+    for name, b, h, w, _, cout, _ in QCONV_CASES:
+        if name not in TURBO_LAUNCHES:
+            continue
+        acc = torch.from_numpy(rng.randint(-2 ** 20, 2 ** 20, (b, h, w, cout))
+                               .astype(np.int32)).cuda()
+        vecs = [torch.from_numpy(rng.uniform(lo, hi, cout).astype(np.float32))
+                .cuda() for lo, hi in ((1e-6, 3e-6), (-0.5, 0.5), (20, 40))]
+        f32_out = cout <= 4                      # the heads' conv2
+        args = (acc, vecs[0], vecs[1], None if f32_out else vecs[2])
+        kw = dict(relu=not f32_out)
+        bnd = requant_bound(acc.numel(), cout, f32_out)
+        layers[name] = {
+            "shape": list(acc.shape), "mode": "f32" if f32_out else "int8",
+            "device_ms": [device_ms(lambda: kr.requant_epilogue(*args, **kw))
+                          for _ in range(2)],
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "launches_per_call": TURBO_LAUNCHES[name]}
+        if name == "turbo_conv3_2":          # 8 x 120 x 160 x 64, int8 out
+            layers[name].update(event_and_plain(
+                lambda: kr.requant_epilogue(*args, **kw),
+                lambda: kr.requant_reference(*args, **kw), 20))
+    per_call = {key: sum(min(np.atleast_1d(v[key])) * v["launches_per_call"]
+                         for v in layers.values())
+                for key in ("device_ms", "bound_ms")}
+    per_call["share_of_bound"] = per_call["bound_ms"] / per_call["device_ms"]
+    return {"probe": "requant", "batch": 8, "timing": DEVICE_TIMING,
+            "layers": layers, "per_hybrid_call_14_launches": per_call}
+
+
+def probe_neck():
+    """The int8 neck at kitti's four scales of a 480 x 640 canvas (256 + 512
+    channels), a call's four launches at B=8 (the serve batch) and 64 (the
+    offline one), beside the bound of their bytes, and one eager call of
+    the kernel and of its plain version."""
+    import torch
+
+    from densebox_tpu_torch.ops.kernels import neck as kneck
+
+    s3 = torch.tensor(0.0173, device="cuda")
+    so = torch.tensor(0.0219, device="cuda")
+    calls = {}
+    for b in (8, 64):
+        levels = neck_levels(b, seed=b)
+
+        def call():
+            return [kneck.int8_neck(f3, f4, s3, so) for f3, f4 in levels]
+
+        def plain():
+            return [kneck.neck_reference(f3, f4, s3, so) for f3, f4 in levels]
+
+        *bnd, nbytes = neck_bound(levels)
+        dev = [device_ms(call, 20 if b == 8 else 3) for _ in range(2)]
+        calls[f"B{b}"] = {"device_ms": dev,
+                          "device_ms_per_image": min(dev) / b,
+                          "bytes": nbytes, "bound_ms": bnd[0],
+                          "bound_by": bnd[1],
+                          "share_of_bound": bnd[0] / min(dev),
+                          **event_and_plain(call, plain, 5)}
+        del levels
+        torch.cuda.empty_cache()
+    return {"probe": "int8_neck", "canvas": [480, 640], "channels": [256, 512],
+            "timing": "device time of a call's four launches: 20 calls (B=8) "
+                      "or 3 (B=64) replayed as a CUDA graph between one pair "
+                      "of events, median of 5; two readings; event_ms, "
+                      "plain_ms: CUDA events around one eager call, median",
+            "calls": calls}
 
 
 def probe_determinism(name, cfg, canvas):
@@ -522,17 +742,16 @@ def probe_determinism(name, cfg, canvas):
 
 def probe_nms():
     """The greedy-NMS kernel alone at the main path's shapes
-    (``NMS_SHAPES``) on three of chip_smoke.py's sets: random, all kept
+    (``NMS_SHAPES``) on three of the tests' sets: random, all kept
     (disjoint) and one chain of suppressions K long; each mask held to the
-    plain version, beside the bound. Uses only ``greedy_keep``, so the same
-    script times an older tree of the package."""
+    plain version, beside the bound and an empty launch of the kernel's
+    grid. Uses only ``greedy_keep``, so the same script times an older tree
+    of the package."""
     import torch
 
     from densebox_tpu_torch.ops.kernels import nms as knms
 
-    res = {"probe": "nms", "timing": "device time: 20 launches replayed as "
-           "a CUDA graph between one pair of events, median of 5; two "
-           "readings"}
+    res = {"probe": "nms", "timing": DEVICE_TIMING + "; two readings"}
     for b, k in NMS_SHAPES:
         for name in ("random", "disjoint", "chain"):
             boxes, valid = nms_set(name, b, k, seed=1)
@@ -545,6 +764,12 @@ def probe_nms():
                 "device_ms": [device_ms(lambda: knms.greedy_keep(tb, tv, 0.5))
                               for _ in range(2)],
                 "bound_ms": nms_bound(valid)[0]}
+            if (name, b, k) == ("random", 8, 512):
+                res[f"{name}_B{b}_K{k}"].update(event_and_plain(
+                    lambda: knms.greedy_keep(tb, tv, 0.5),
+                    lambda: knms.greedy_keep_reference(tb, tv, 0.5), 7))
+        cluster, threads = knms.launch_shape(b, k)
+        res[f"floor_B{b}_K{k}"] = empty_launch_ms(cluster, b, threads)
         # the host's side of a call: wrapper, custom-op dispatch and launch,
         # enqueued 100 at a time without a synchronisation between them
         host = []
@@ -560,48 +785,106 @@ def probe_nms():
 
 
 def probe_small_kernels():
-    """Device time of the OHEM and window-gather kernels at the main path's
-    shapes, through their wrappers alone."""
+    """The OHEM, window-gather and rasterizer kernels at the main path's
+    shapes, through their wrappers alone, beside their bounds and floors."""
     import torch
 
-    from densebox_tpu_torch.ops.kernels.ohem import ohem_select
-    from densebox_tpu_torch.ops.kernels.window import gather_windows
+    from densebox_tpu_torch.ops.kernels import build
+    from densebox_tpu_torch.ops.kernels.ohem import (ohem_select,
+                                                     ohem_select_reference)
+    from densebox_tpu_torch.ops.kernels.window import (
+        gather_windows, gather_windows_reference)
 
     args = ohem_forward_case(32)
-    res = {"probe": "small_kernels", "timing": "device time: 20 launches "
-           "replayed as a CUDA graph between one pair of events, median of 5",
-           "ohem_B32_P3600": [device_ms(
-               lambda: ohem_select(*args, 1.0, 0.5, 16)) for _ in range(2)]}
+    b, p = args[0].shape
+    # floors: an empty launch of the kernel's grid and block, and that
+    # launch plus the chain of block-wide rounds through the kernel's
+    # reducer that the worst sample needs (the levels one warp walks alone
+    # are counted beside it and not timed)
+    threads = build.load("ohem").densebox_ohem_block_threads(p)
+    round_us = (round_chain_ms(b, threads, 200)
+                - round_chain_ms(b, threads, 0)) / 200 * 1e3
+    schedule = ohem_chain(args)
+    empty = empty_launch_ms(b, 1, threads)
+    res = {"probe": "small_kernels", "timing": DEVICE_TIMING + "; two readings",
+           "ohem_B32_P3600": {
+               "device_ms": [device_ms(lambda: ohem_select(*args, 1.0, 0.5, 16))
+                             for _ in range(2)],
+               "bound_ms": ohem_bound(b, p)[0],
+               **event_and_plain(
+                   lambda: ohem_select(*args, 1.0, 0.5, 16),
+                   lambda: ohem_select_reference(*args, 1.0, 0.5, 16), 5),
+               "block_threads": threads, "empty_launch_ms": empty,
+               "block_round_us": round_us,
+               "schedule_worst_sample": schedule,
+               "block_rounds_floor_ms": (
+                   empty + schedule["block_rounds"] * round_us * 1e-3)}}
     rng = np.random.RandomState(13)
-    name, *shape, shared = WINDOW_CASES[0]
-    for dtype in (torch.bfloat16, torch.float32):
-        wargs = window_inputs(rng, *shape, shared, dtype) + [shape[-1]]
-        res[f"window_{name}_{str(dtype).split('.')[-1]}"] = [
-            device_ms(lambda: gather_windows(*wargs)) for _ in range(2)]
+    for name, *shape, shared in WINDOW_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if name != "malf" and dtype == torch.float32:
+                continue
+            wargs = window_inputs(rng, *shape, shared, dtype) + [shape[-1]]
+            row = {"device_ms": [device_ms(lambda: gather_windows(*wargs))
+                                 for _ in range(2)]}
+            if name == "malf" and dtype == torch.bfloat16:
+                wb, _, num_lm, _, _, d, win = shape
+                row["bound_ms"] = window_bound(wb, num_lm, d, win)[0]
+                row.update(event_and_plain(
+                    lambda: gather_windows(*wargs),
+                    lambda: gather_windows_reference(*wargs), 20))
+                row["empty_launch_ms"] = empty_launch_ms(wb * d, 1, 256)
+                row.update(window_library(*wargs))
+            res[f"window_{name}_{str(dtype).split('.')[-1]}"] = row
     res.update(probe_rasterizers())
     return res
 
 
 def probe_rasterizers():
-    """Device time of the two GT rasterizers at the training shape (B=32,
-    K=16, M=60, L=5; ``chip_smoke.py``'s rows), through their wrappers alone;
-    where the package has them, also both maps in one launch and the landmark
-    kernel against the blocks it gives a patch."""
+    """Device time of the two GT rasterizers at a train step's shape
+    (``TRAIN_RASTER``; ``label_rows``'s rows and a train step's own), beside
+    their bounds and empty launches of their grids, both maps in one launch,
+    and the landmark kernel against the blocks it gives a patch."""
     import torch
 
     from densebox_tpu_torch import LabelCfg, malf_face
     from densebox_tpu_torch.data import synthetic_batch
     from densebox_tpu_torch.ops.kernels import labels as kl
 
-    _, b, k, m, num_lm = RASTER_CASES[0]
+    b, k, m, num_lm = TRAIN_RASTER
     rows, lm_rows = (torch.from_numpy(a).cuda() for a in label_rows(
         np.random.RandomState(17), b, k, m, num_lm))
     inv = 1.0 / LabelCfg().loc_norm
-    res = {"rasterize_boxes_B32_K16_M60": [device_ms(
-               lambda: kl.rasterize_boxes(rows, m, inv)) for _ in range(2)],
-           "rasterize_landmarks_B32_K16_L5_M60": [device_ms(
-               lambda: kl.rasterize_landmarks(lm_rows, m, num_lm))
-               for _ in range(2)]}
+    box_bound, lm_bound = rasterizer_bounds(rows, lm_rows, m, num_lm)
+    # an empty kernel of each grid (csrc/labels.cu: 256 threads; boxes:
+    # tiles of 32 x 8 pixels, batch in y; landmarks: the chunks of a
+    # patch's output, batch in y; both maps: the wider of the two grids
+    # twice)
+    box_blocks = -(-m // 32) * -(-m // 8)
+    _, chunks = kl.landmark_chunk(m, num_lm, b)
+    res = {
+        "rasterize_boxes_B32_K16_M60": {
+            "device_ms": [device_ms(lambda: kl.rasterize_boxes(rows, m, inv))
+                          for _ in range(2)],
+            "bound_ms": box_bound[0],
+            "empty_launch_ms": empty_launch_ms(box_blocks, b, 256),
+            **event_and_plain(
+                lambda: kl.rasterize_boxes(rows, m, inv),
+                lambda: kl.rasterize_boxes_reference(rows, m, inv))},
+        "rasterize_landmarks_B32_K16_L5_M60": {
+            "device_ms": [device_ms(
+                lambda: kl.rasterize_landmarks(lm_rows, m, num_lm))
+                for _ in range(2)],
+            "bound_ms": lm_bound[0],
+            "empty_launch_ms": empty_launch_ms(chunks, b, 256),
+            **event_and_plain(
+                lambda: kl.rasterize_landmarks(lm_rows, m, num_lm),
+                lambda: kl.rasterize_landmarks_reference(lm_rows, m, num_lm))},
+        "rasterize_maps_one_launch": {
+            "device_ms": [device_ms(lambda: kl.rasterize_maps(
+                rows, lm_rows, m, inv, num_lm)) for _ in range(2)],
+            "empty_launch_ms": empty_launch_ms(2 * max(box_blocks, chunks),
+                                               b, 256)}}
     # the rows a train step gives the kernels: a synthetic batch of the
     # malf_face() preset, packed
     cfg = malf_face()
@@ -617,15 +900,10 @@ def probe_rasterizers():
             lambda: kl.rasterize_boxes(step_rows, m, inv)) for _ in range(2)],
         "rasterize_landmarks": [device_ms(
             lambda: kl.rasterize_landmarks(step_lm_rows, m, num_lm))
+            for _ in range(2)],
+        "rasterize_maps_one_launch": [device_ms(
+            lambda: kl.rasterize_maps(step_rows, step_lm_rows, m, inv, num_lm))
             for _ in range(2)]}
-    if not hasattr(kl, "rasterize_maps"):
-        return res
-    res["rows_of_a_train_step"]["rasterize_maps_one_launch"] = [device_ms(
-        lambda: kl.rasterize_maps(step_rows, step_lm_rows, m, inv, num_lm))
-        for _ in range(2)]
-    res["rasterize_maps_one_launch"] = [device_ms(
-        lambda: kl.rasterize_maps(rows, lm_rows, m, inv, num_lm))
-        for _ in range(2)]
     per = m * m * num_lm
     sweep = {}
     for blocks in (3, 4, 5, 6, 8, 10, 15, 20):
@@ -861,8 +1139,8 @@ def probe_slot(name, model_cfg, infer_cfg, label_cfg, canvas, quant=None):
 # layers of the qconv probe that are also timed at B = 1 .. 32
 SCALED_LAYERS = ("turbo_conv1_2", "turbo_conv3_2", "turbo_conv4_2",
                  "turbo_head_conv1")
-GROUPS = ("serve", "int8", "lm", "train", "fused_conv", "resize", "qconv",
-          "determinism", "export", "small_kernels", "slot", "nms")
+GROUPS = ("fused_conv", "resize", "qconv", "determinism", "export",
+          "small_kernels", "slot", "nms")
 
 
 def slot_cells():
@@ -896,7 +1174,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls", type=int, default=5,
-                    help="device calls in each cell's profiler trace")
+                    help="calls in each profiler trace of the export probe")
     ap.add_argument("--only", default=",".join(GROUPS),
                     help="comma-separated groups of probes to run: "
                          + ", ".join(GROUPS))
@@ -916,27 +1194,6 @@ def main(argv=None) -> int:
     host = torch.from_numpy(np.random.RandomState(0).rand(*CANVAS)
                             .astype(np.float32)).pin_memory()
     cells = serving_cells()
-    if "serve" in only:
-        for name, *cfgs in cells:
-            emit(probe_cell(name, *cfgs, host, args.calls))
-    _, turbo, turbo_infer, label = cells[1]
-    if "int8" in only:
-        for name, quant in (("turbo_int8", "fused"),
-                            ("turbo_int8_hybrid", "hybrid")):
-            emit(probe_cell(name, turbo, turbo_infer, label, host, args.calls,
-                            quant=quant))
-    if "lm" in only:
-        for name, *cfgs, quant in landmark_cells():
-            emit(probe_cell(name, *cfgs, host, args.calls, quant=quant,
-                            loc_bias=1.0))
-    if "train" in only:
-        for dtype in ("float32", "bfloat16"):
-            for (preset, cfg), cell in zip(train_cfgs(),
-                                           ("train_paper", "train_malf")):
-                cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-                    cfg.model, compute_dtype=dtype))
-                emit(probe_train(cell, cfg, preset == "malf_face", args.calls))
-                torch.cuda.empty_cache()
     _, paper, paper_infer, _ = cells[0]
     if "fused_conv" in only:
         emit(probe_fused_conv(paper))
@@ -944,6 +1201,8 @@ def main(argv=None) -> int:
         emit(probe_resize(paper_infer, host))
     if "qconv" in only:
         emit(probe_qconv())
+        emit(probe_requant())
+        emit(probe_neck())
     if "determinism" in only:
         for (preset, cfg), cell in zip(train_cfgs(),
                                        ("train_paper", "train_malf")):

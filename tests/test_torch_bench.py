@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 from densebox_tpu_torch import bench, loadtest
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"metric", "value", "unit", "vs_baseline"}

@@ -45,6 +45,7 @@ from densebox_tpu.ops.pallas import qconv as jax_qconv
 from densebox_tpu.ops.pallas import requant as jax_requant
 from densebox_tpu_torch import bench
 from densebox_tpu_torch.models import from_flax, quantize_densebox
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 
 def _requant_twin(acc, scale, bias, out_scale=None, *, relu=True):

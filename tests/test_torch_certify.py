@@ -23,6 +23,7 @@ import torch
 
 from densebox_tpu import cli as jax_cli
 from densebox_tpu_torch import certify
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_TOOL = os.path.join(REPO, "tools", "certify_quality.py")
@@ -188,9 +189,6 @@ def test_tiny_certification_end_to_end(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(certify, "CONFIGS", TINY)
     monkeypatch.setattr(certify, "train_command", tiny_train)
     monkeypatch.setattr(certify, "NME_BATCHES", 1)
-    # one thread in each command the tool starts: the suite runs workers in
-    # parallel, and six torch processes each taking every core oversubscribe
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     out = tmp_path / "CERT.md"
     assert certify.main(["--steps", "2", "--eval-batches", "1", "--device",
                          "cpu", "--workroot", str(tmp_path / "w"),

@@ -21,6 +21,7 @@ from densebox_tpu_torch.train import (create_train_state, fit,
                                       load_quantized, make_manager,
                                       make_train_step, restore_checkpoint,
                                       save_checkpoint, save_quantized)
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 
 def _tiny(preset=kitti_vehicle):

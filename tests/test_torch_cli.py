@@ -38,6 +38,7 @@ from densebox_tpu_torch.config import DenseBoxConfig, LabelCfg, ModelCfg
 from densebox_tpu_torch.models import DenseBox, from_flax
 from densebox_tpu_torch.train import (create_train_state, load_for_inference,
                                       make_manager, save_checkpoint)
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 TINY = ["--width-mult", "0.125", "--patch-size", "64", "--std-height", "20",
         "--max-boxes", "3", "--batch-size", "2", "--device", "cpu"]

@@ -25,6 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 from chip_smoke import write_png  # noqa: E402
+import torch_threads  # noqa: F401,E402  (sets torch's threads)
 
 
 @pytest.fixture

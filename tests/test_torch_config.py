@@ -9,6 +9,7 @@ import pytest
 from densebox_tpu import config as jax_config
 from densebox_tpu import presets as jax_presets
 from densebox_tpu_torch import config, presets
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 CLASSES = ["ModelCfg", "LabelCfg", "LossCfg", "InferCfg", "TrainCfg",
            "DenseBoxConfig"]

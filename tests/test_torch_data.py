@@ -23,6 +23,7 @@ from densebox_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
 from densebox_tpu_torch.config import LabelCfg
 from densebox_tpu_torch.data import sample_patches, synthetic_batch
 from densebox_tpu_torch.infer.resize import weight_matrices
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 PERM = (1, 0, 2, 4, 3)
 

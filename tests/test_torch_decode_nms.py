@@ -24,6 +24,7 @@ from densebox_tpu_torch.ops.kernels import nms as knms
 from densebox_tpu_torch.ops.nms import iou_matrix, nms
 from test_torch_kernels import random_boxes as _random_boxes
 from test_torch_kernels import threshold_boxes as _threshold_boxes
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 
 def _maps(seed, b, h, w):

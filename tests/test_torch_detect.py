@@ -29,6 +29,7 @@ from densebox_tpu_torch.infer import (make_detect_fn, pyramid_shapes,
 from densebox_tpu_torch.models import DenseBox, from_flax
 from densebox_tpu_torch import serve as serve_module
 from densebox_tpu_torch.serve import DetectServer
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PYRAMID = (0.5, 0.7071, 1.0, 1.4142)

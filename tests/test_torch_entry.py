@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from densebox_tpu_torch.entry import dryrun_multichip, entry
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ from densebox_tpu import cli as jax_cli
 from densebox_tpu import eval as jax_eval
 from densebox_tpu_torch import cli
 from densebox_tpu_torch import eval as port_eval
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 SEEDS = range(8)
 

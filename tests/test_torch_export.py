@@ -35,6 +35,7 @@ from densebox_tpu_torch import export as port_export
 from densebox_tpu_torch.infer import detect_batch
 from densebox_tpu_torch.models import (DenseBox, QuantDenseBox, from_flax,
                                        qparams_from_jax)
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PYRAMID = (0.5, 0.7071, 1.0, 1.4142)

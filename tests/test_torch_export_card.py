@@ -27,6 +27,7 @@ from densebox_tpu_torch.ops.kernels import nms as knms
 from densebox_tpu_torch.ops.kernels import qconv as kqconv
 from densebox_tpu_torch.ops.kernels import requant as krequant
 from densebox_tpu_torch.ops.kernels import window as kwindow
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 CANVAS = (96, 128)
 

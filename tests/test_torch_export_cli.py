@@ -28,6 +28,7 @@ from densebox_tpu_torch.export import (artifact_meta, export_detect_program,
 from densebox_tpu_torch.infer import detect_batch
 from densebox_tpu_torch.models import DenseBox, init_params
 from densebox_tpu_torch.serve import DetectServer
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANVAS = (96, 128)

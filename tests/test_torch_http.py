@@ -33,6 +33,7 @@ from densebox_tpu_torch.infer import detect_batch
 from densebox_tpu_torch.models import DenseBox
 from densebox_tpu_torch.serve import (MAX_BODY_BYTES, DetectServer,
                                       make_http_server, serve_forever)
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANVAS = (96, 128)

@@ -20,6 +20,7 @@ import pytest
 from PIL import Image
 
 from densebox_tpu_torch.data import imageio
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 NO_CV2 = {"cv2": None}
 

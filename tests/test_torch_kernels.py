@@ -32,7 +32,10 @@ from densebox_tpu_torch.ops.nms import nms
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
-from chip_smoke import NMS_SETS, nms_set  # noqa: E402
+from kernel_cases import (KITTI_OFFLINE, NMS_SETS, NMS_SHAPES,  # noqa: E402
+                          QCONV_CASES, TURBO_LAUNCHES, TRAIN_RASTER,
+                          landmark_edge_rows, nms_set, ohem_forward_case)
+import torch_threads  # noqa: F401,E402  (sets torch's threads)
 
 
 def random_boxes(seed, b, k):
@@ -91,9 +94,9 @@ def test_kernel_matches_plain_version(cuda, k):
 @pytest.mark.parametrize("k", [1, 63, 64, 65, 97, 100, 256, 512, 1024])
 def test_kernel_sets_match_plain_version(cuda, name, k):
     """The schedule model's sets (tests/test_torch_nms_schedule.py) at B=1
-    and B=8, and at B=256 with K=256 (the turbo bench's call): one launch,
-    keep masks equal bit for bit."""
-    for b in (1, 8) + ((256,) if k == 256 else ()):
+    and B=8, at B=256 with K=256 (the turbo bench's call) and at B=64 with
+    K=512 (the paper bench's): one launch, keep masks equal bit for bit."""
+    for b in (1, 8) + {256: (256,), 512: (64,)}.get(k, ()):
         boxes, valid = nms_set(name, b, k, seed=k)
         tb = torch.from_numpy(boxes).to(cuda)
         tv = torch.from_numpy(valid).to(cuda)
@@ -105,10 +108,13 @@ def test_kernel_sets_match_plain_version(cuda, name, k):
 
 
 @pytest.mark.gpu
-def test_kernel_in_a_cuda_graph(cuda):
+@pytest.mark.parametrize("name", ["random", "disjoint", "chain"])
+@pytest.mark.parametrize("b,k", NMS_SHAPES)
+def test_kernel_in_a_cuda_graph(cuda, name, b, k):
     """One call is one launch and no other host call: a CUDA graph holds it,
-    and its replay gives the eager call's mask."""
-    boxes, valid = nms_set("random", 8, 512)
+    and its replay gives the eager call's mask, at the shapes and on the
+    sets that ``profile_port.py`` times by graph replay."""
+    boxes, valid = nms_set(name, b, k, seed=1)
     tb, tv = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
     eager = knms.greedy_keep(tb, tv, 0.5)
     graph = torch.cuda.CUDAGraph()
@@ -122,9 +128,13 @@ def test_kernel_in_a_cuda_graph(cuda):
 
 
 @pytest.mark.gpu
-def test_kernel_threshold_pairs_and_nms(cuda):
-    for k in (256, 512):
-        boxes, scores, valid = threshold_boxes(k, 8, k)
+@pytest.mark.parametrize("make", [threshold_boxes, random_boxes],
+                         ids=["threshold", "random"])
+def test_kernel_threshold_pairs_and_nms(cuda, make):
+    """The whole ``nms`` (sort, kernel, gather) on the card against the
+    CPU: keep sets, indices, boxes and scores identical."""
+    for k in (256, 512, 1024):
+        boxes, scores, valid = make(k, 8, k)
         args = [torch.from_numpy(a) for a in (boxes, scores, valid)]
         want = nms(*args, iou_thresh=0.5, max_out=128, return_idx=True)
         got = nms(*[a.to(cuda) for a in args], iou_thresh=0.5, max_out=128,
@@ -238,7 +248,12 @@ def qconv_case(seed, b, h, w, cin, cout, k):
 # Cin that is 16 but not 32 channels past a k32 step (48, 72, 80), weights
 # resident with the input in 64-channel chunks (144, 192), weights streamed
 # in chunks (256 and 512 at 3x3, 768 at 1x1), a map that is no multiple of
-# the 8x16 tile in either direction, and B = 1 at a model's map
+# the 8x16 tile in either direction, and B = 1 at a model's map; then the
+# models' layers at their maps: paper conv1_1, conv4_2 and head conv1, the
+# malf lm head's conv2 and refine conv1, a ragged CUDA-core conv (Cin 5,
+# Cout 24), a warpgroup conv off the tile, and every conv of the turbo int8
+# model at the serving batch (``kernel_cases.QCONV_CASES``, the shapes
+# profile_port.py times)
 QCONV_SHAPES = [
     (2, 16, 32, 16, 16, 3), (1, 12, 33, 5, 4, 3), (2, 9, 17, 3, 64, 3),
     (1, 8, 24, 72, 130, 3), (2, 16, 33, 40, 32, 1), (1, 13, 20, 128, 1, 1),
@@ -247,7 +262,10 @@ QCONV_SHAPES = [
     (2, 27, 45, 48, 16, 3), (1, 17, 19, 144, 40, 3), (1, 7, 9, 80, 130, 3),
     (1, 13, 33, 768, 512, 1), (1, 11, 19, 256, 256, 3),
     (1, 9, 17, 512, 512, 3), (1, 120, 160, 64, 64, 3), (1, 5, 7, 16, 8, 1),
-]
+    (2, 240, 320, 3, 64, 3), (2, 30, 40, 512, 512, 3),
+    (1, 30, 40, 768, 512, 1), (2, 60, 80, 512, 5, 1), (2, 60, 80, 6, 64, 3),
+    (3, 13, 33, 5, 24, 3), (2, 27, 45, 64, 64, 3),
+] + [tuple(shape) for name, *shape in QCONV_CASES if name in TURBO_LAUNCHES]
 
 
 @pytest.mark.gpu
@@ -341,7 +359,11 @@ def test_qconv_kernel_plans(cuda):
 @pytest.mark.parametrize("mode", ["int8", "f32"])
 def test_requant_kernel_matches_plain_version(cuda, mode):
     rng = np.random.RandomState(7)
-    for shape in [(2, 9, 17, 64), (1, 5, 7, 3), (3, 1)]:
+    # odd shapes, then the accumulators of a hybrid call of the turbo int8
+    # model (B=8; ``profile_port.py`` times the epilogue at each)
+    turbo = sorted({(b, h, w, cout) for name, b, h, w, _, cout, _
+                    in QCONV_CASES if name in TURBO_LAUNCHES})
+    for shape in [(2, 9, 17, 64), (1, 5, 7, 3), (3, 1)] + turbo:
         acc = torch.from_numpy(rng.randint(-2 ** 27, 2 ** 27, shape)
                                .astype(np.int32)).to(cuda)
         cout = shape[-1]
@@ -456,10 +478,14 @@ def test_wgmma_matches_reference_at_model_widths(cuda, width, batch, h, w):
 
 
 @pytest.mark.gpu
-def test_wgmma_kitti_size_launch(cuda):
-    """kitti's conv3_2 at B=64, 120 x 160, as the offline cell runs it,
-    checked against the plain version on its first two images."""
-    _all_modes(cuda, (64, 120, 160, 256, 256, 3), 32, rows=2)
+@pytest.mark.parametrize("shape", [
+    tuple(shape) for name, *shape in QCONV_CASES if name in KITTI_OFFLINE],
+    ids=str)
+def test_wgmma_kitti_size_launch(cuda, shape):
+    """kitti's launches at B=64 as the offline cell runs them (conv2_2,
+    conv3_2, conv4_2 and the heads' conv1; ``profile_port.py`` times them),
+    checked against the plain version on their first two images."""
+    _all_modes(cuda, shape, 32, rows=2)
 
 
 @pytest.mark.gpu
@@ -501,9 +527,10 @@ def test_wgmma_takes_kitti_trunk(cuda):
 
 # (B, S, L, Hm, Wm, D, win): the MALF serve shape (5-scale pyramid of a
 # 480x640 canvas, scale 1.4142 the largest map), the bench's lm4 shape (one
-# scale) and a ragged one (odd map, odd window)
+# scale), a ragged one (odd map, odd window: 34- and 68-byte rows, the
+# element copy) and a short window (16-byte rows in bf16: one vector a row)
 WINDOW_SHAPES = [(8, 5, 5, 170, 228, 64, 32), (8, 1, 4, 120, 160, 64, 32),
-                 (3, 2, 3, 37, 29, 5, 17)]
+                 (3, 2, 3, 37, 29, 5, 17), (2, 2, 3, 21, 27, 9, 8)]
 
 
 def window_case(seed, b, s, num_lm, hm, wm, d, win, shared):
@@ -525,17 +552,9 @@ def window_case(seed, b, s, num_lm, hm, wm, d, win, shared):
 @pytest.mark.parametrize("shared", [False, True], ids=["per_lm", "shared"])
 def test_window_kernel_matches_plain_version(cuda, shape, dtype, shared):
     maps, sel, y0, x0 = window_case(sum(shape), *shape, shared)
-    maps = torch.from_numpy(maps).to(cuda, dtype)
-    sel, y0, x0 = (torch.from_numpy(a).to(cuda) for a in (sel, y0, x0))
-    win = shape[-1]
-    before = kwindow.launches
-    got = kwindow.gather_windows(maps, sel, y0, x0, win)
-    torch.cuda.synchronize()
-    assert kwindow.launches == before + 1
-    want = kwindow.gather_windows_reference(maps, sel, y0, x0, win)
-    assert got.dtype == dtype and got.shape == want.shape
-    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-    assert torch.equal(got.view(bits), want.view(bits))
+    _assert_window_equal(torch.from_numpy(maps).to(cuda, dtype),
+                         *(torch.from_numpy(a).to(cuda)
+                           for a in (sel, y0, x0)), shape[-1])
 
 
 def window_edge_case(seed, win, shared, dtype, hm=45, wm=53):
@@ -837,12 +856,47 @@ def test_rasterize_maps_one_launch_matches_plain_versions(cuda, shape):
     assert _bits_equal(got, want)
 
 
+def _chunk_edge_rows(cuda):
+    """Box rows of ``label_rows`` and landmark rows with a centre at every
+    quarter pixel across each edge of a block's chunk of a train step's
+    output (``kernel_cases.landmark_edge_rows``), inside and outside the
+    map; batches of a train step's size, so that the kernel cuts the output
+    into the chunks the rows were made for."""
+    b, k, m, num_lm = TRAIN_RASTER
+    chunk, _ = klabels.landmark_chunk(m, num_lm, b)
+    lm = landmark_edge_rows(m, num_lm, k, chunk)
+    lm = np.concatenate([lm, np.full((-len(lm) % b,) + lm.shape[1:], -1.0,
+                                     np.float32)])
+    rows, _ = label_rows(17, len(lm), k, m, num_lm)
+    return [(torch.from_numpy(rows[i:i + b]).to(cuda),
+             torch.from_numpy(lm[i:i + b]).to(cuda))
+            for i in range(0, len(lm), b)], m, num_lm
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, "chunk_edges", "px_boxes"], ids=str)
 def test_rasterizers_on_the_quarter_pixel_grid(cuda, seed):
     """Centres and radii on quarter pixels (rims everywhere), landmarks from
     outside the map to outside it again with squared radii 0 to 6.25, and
-    every slot invalid in one patch."""
+    every slot invalid in one patch; ``chunk_edges``: a landmark centre at
+    every quarter pixel across the edges of the landmark kernel's chunks;
+    ``px_boxes``: boxes and landmarks in pixels through the whole
+    ``rasterize`` (packing on the card included) against the CPU."""
+    if seed == "px_boxes":
+        _assert_rasterize_card_equals_cpu(cuda)
+        return
+    if seed == "chunk_edges":
+        batches, m, num_lm = _chunk_edge_rows(cuda)
+        for rows, lm in batches:
+            want = klabels.rasterize_boxes_reference(
+                rows, m, float(np.float32(0.08))) + (
+                klabels.rasterize_landmarks_reference(lm, m, num_lm),)
+            got = klabels.rasterize_boxes(rows, m, 0.08) + (
+                klabels.rasterize_landmarks(lm, m, num_lm),)
+            assert _bits_equal(got, want)
+            assert _bits_equal(
+                klabels.rasterize_maps(rows, lm, m, 0.08, num_lm), want)
+        return
     b, k, m, num_lm = 8, 16, 60, 5
     rng = np.random.RandomState(seed)
     rows, _ = label_rows(seed, b, k, m, num_lm)
@@ -865,6 +919,36 @@ def test_rasterizers_on_the_quarter_pixel_grid(cuda, seed):
     assert _bits_equal(got, want)
     assert _bits_equal(klabels.rasterize_maps(rows, lm, m, 0.08, num_lm), want)
     assert want[3].sum() > 0 and all(float(w[2].abs().sum()) == 0 for w in want)
+
+
+def _assert_rasterize_card_equals_cpu(cuda):
+    """Boxes and landmarks in pixels (a train step's B=32, K=16, L=5 of
+    240-pixel patches) through ``ops/labels.py:rasterize`` on the card and
+    on the CPU: every map bit for bit."""
+    from densebox_tpu_torch import LabelCfg
+    from densebox_tpu_torch.ops.labels import rasterize
+
+    rng = np.random.RandomState(17)
+    ctr = rng.uniform(20, 220, (32, 16, 2))
+    h = rng.uniform(25, 80, (32, 16))
+    wh = np.stack([h * rng.uniform(0.7, 1.3, (32, 16)), h], -1)
+    boxes = torch.from_numpy(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+                             .astype(np.float32))
+    valid = torch.from_numpy(rng.rand(32, 16) > 0.5)
+    lms = torch.from_numpy((ctr[:, :, None] + rng.uniform(-20, 20,
+                                                          (32, 16, 5, 2)))
+                           .astype(np.float32))
+    lmv = torch.from_numpy(rng.rand(32, 16, 5) > 0.2)
+    cfg = LabelCfg()
+    on_card = rasterize(boxes.to(cuda), valid.to(cuda), cfg, lms.to(cuda),
+                        lmv.to(cuda))
+    on_cpu = rasterize(boxes, valid, cfg, lms, lmv)
+    assert on_cpu["score"].sum() > 0 and on_cpu["lm"].sum() > 0
+    assert on_card.keys() == on_cpu.keys()
+    for k, want in on_cpu.items():
+        got = on_card[k].cpu()
+        assert got.shape == want.shape, k
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
 
 
 @pytest.mark.gpu
@@ -973,14 +1057,21 @@ def ohem_case(seed, b, p, kind):
     return sq, pos, ign, rng.rand(b, p).astype(np.float32)
 
 
+OHEM_BP = [(32, 3600), (3, 256), (2, 513), (1, 16384), (2, 37)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["random", "tied", "no_pos", "short",
-                                  "levels"])
-@pytest.mark.parametrize("bp", [(32, 3600), (3, 256), (2, 513), (1, 16384),
-                                (2, 37)], ids=str)
+@pytest.mark.parametrize("bp,kind", [
+    (bp, kind) for kind in ("random", "tied", "no_pos", "short", "levels")
+    for bp in OHEM_BP] + [((32, 3600), "forward")], ids=str)
 def test_ohem_kernel_matches_plain_version(cuda, kind, bp):
-    args = [torch.from_numpy(a).to(cuda)
-            for a in ohem_case(sum(bp), *bp, kind)]
+    """The kinds of ``ohem_case``, and (``forward``) the errors of the paper
+    model's score map on a train step's batch of 32 patches
+    (``kernel_cases.ohem_forward_case``, the input it times)."""
+    args = ([a.to(cuda) for a in ohem_forward_case(bp[0])]
+            if kind == "forward" else
+            [torch.from_numpy(a).to(cuda)
+             for a in ohem_case(sum(bp), *bp, kind)])
     before = kohem.launches
     got = kohem.ohem_select(*args, 1.0, 0.5, 16)
     torch.cuda.synchronize()

@@ -20,6 +20,7 @@ from densebox_tpu.data import pipeline as jax_pipeline
 from densebox_tpu.native import native_available as jax_native_available
 from densebox_tpu_torch.data import kitti, pipeline
 from densebox_tpu_torch.native import load_canvas_native, native_available
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 BASE = "{cls} {trunc} {occ} -1.58 {b} 1.57 1.73 4.15 1.00 1.75 13.22 -1.62"
 

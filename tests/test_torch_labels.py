@@ -23,6 +23,7 @@ from densebox_tpu_torch.ops.decode import decode_topk
 from densebox_tpu_torch.ops.kernels import labels as klabels
 from densebox_tpu_torch.ops.labels import rasterize
 from test_labels import _rand_instances, numpy_rasterize
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 SMALL = dict(patch_size=64, std_height_px=20.0)     # 16x16 maps
 
@@ -325,7 +326,7 @@ def _check_models(rows, lm_rows, m, num_lm, chunk=None):
 
 
 def _label_rows(case, b, k, m, num_lm):
-    from chip_smoke import label_rows
+    from kernel_cases import label_rows
 
     rows, lm_rows = label_rows(np.random.RandomState(17), b, k, m, num_lm,
                                quarter=case == "quarter_grid")
@@ -341,8 +342,9 @@ def _label_rows(case, b, k, m, num_lm):
     ("m125_k1024", 1, 1024, 125, 1), ("m125_kl1024", 1, 256, 125, 4),
     ("one_pixel", 2, 2, 1, 1), ("m33", 2, 5, 33, 2)])
 def test_kernel_schedules_equal_the_plain_versions(case, b, k, m, num_lm):
-    """The cases of chip_smoke.py's phase 17 (fewer patches), through the
-    numpy models of the two kernels' schedules."""
+    """The rasterizer cases of ``kernel_cases.label_rows`` (quarter grid,
+    every slot invalid, the edges of the staging passes), through the numpy
+    models of the two kernels' schedules."""
     rows, lm_rows = _label_rows(case, b, k, m, num_lm)
     tests, walked = _check_models(rows, lm_rows, m, num_lm)
     if case == "all_invalid":
@@ -358,7 +360,7 @@ def test_landmark_scatter_on_chunk_edges(chunk):
     """A centre at every quarter pixel from 3 above to 3 below each map row
     where a chunk ends, at columns inside, on the rim of and outside the
     map, with squared radii 0, 0.25, 1, 2.25 and 6.25."""
-    from chip_smoke import LM_R2, landmark_edge_rows
+    from kernel_cases import LM_R2, landmark_edge_rows
 
     m, num_lm, k = (60, 5, 16) if chunk >= 1024 else (8, 3, 4)
     lm_rows = landmark_edge_rows(m, num_lm, k, chunk)
@@ -451,7 +453,7 @@ def test_quarter_pixel_landmarks_identical_to_jax(num_lm):
 
 
 def test_rasterize_maps_is_both_wrappers():
-    from chip_smoke import label_rows
+    from kernel_cases import label_rows
 
     rows, lm_rows = (torch.from_numpy(a) for a in label_rows(
         np.random.RandomState(3), 2, 4, 16, 3))

@@ -48,6 +48,7 @@ from densebox_tpu_torch.ops.window import (gather_windows,
 from densebox_tpu_torch.serve import DetectServer
 from test_torch_detect import _assert_detections_match
 from test_torch_quant import jax_twins
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 STRIDE = 4
 ANCHORS4 = ((0.0, 0.0), (1.0, 0.0), (1.0, 1.0), (0.0, 1.0))

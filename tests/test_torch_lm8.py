@@ -31,6 +31,7 @@ from port_bench.reference import compare, detect as ref_detect, model as ref
 from port_bench.trace import Summary
 from port_bench.traffic.scenes import scenes
 from port_bench.weights import make_weights
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 CELL = "kitti_lm8_int8_offline"
 HW = (48, 160)                      # KITTI's aspect, a multiple of 8

@@ -18,6 +18,8 @@ from densebox_tpu.models import DenseBox as JaxDenseBox
 from densebox_tpu.models import densebox as jax_densebox
 from densebox_tpu_torch.models import DenseBox, from_flax, init_params
 from densebox_tpu_torch.models import densebox as port_densebox
+from densebox_tpu_torch.ops import upsample as port_upsample
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 STEMS = ("conv", "s2d", "s2d4")
 
@@ -52,11 +54,11 @@ def test_space_to_depth_matches_jax(r):
 @pytest.mark.parametrize("n", [1, 4, 15])
 def test_upsample_matches_jax(n):
     np.testing.assert_array_equal(
-        port_densebox.interp_matrix_align_corners(n, 2 * n),
+        port_upsample.interp_matrix_align_corners(n, 2 * n),
         jax_densebox.interp_matrix_align_corners(n, 2 * n))
     x = np.random.RandomState(n).rand(2, n, n + 3, 5).astype(np.float32)
     want = np.asarray(jax_densebox.upsample2x_align_corners(jnp.asarray(x)))
-    got = port_densebox.upsample2x_align_corners(torch.from_numpy(x)).numpy()
+    got = port_upsample.upsample2x_align_corners(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 

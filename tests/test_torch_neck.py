@@ -23,10 +23,11 @@ from densebox_tpu_torch.infer import detect_batch
 from densebox_tpu_torch.infer.detector import pyramid_shapes
 from densebox_tpu_torch.models import (QuantDenseBox, init_params,
                                        quantize_densebox)
-from densebox_tpu_torch.models.densebox import upsample2x_align_corners
 from densebox_tpu_torch.models.quant import GLUE, quant_act
 from densebox_tpu_torch.ops.kernels import launch_counts
 from densebox_tpu_torch.ops.kernels import neck as kneck
+from densebox_tpu_torch.ops.upsample import upsample2x_align_corners
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 CPU = torch.device("cpu")
 

@@ -8,9 +8,9 @@ shared memory (those no warp stores hold garbage), and the sweep over
 64-box tiles (the hits by kept boxes of earlier tiles, then the fixed point
 over kept and undecided boxes within the tile). Its keep masks must equal
 ``greedy_keep_reference`` and ``greedy_keep_pallas(interpret=True)`` bit
-for bit on every set of ``chip_smoke.nms_set`` at K from 1 to 1024; the
-card holds the kernel to the same sets (tests/test_torch_kernels.py,
-chip_smoke.py phase 4). Change kernel and model together.
+for bit on every set of ``kernel_cases.nms_set`` at K from 1 to 1024; the
+card holds the kernel to the same sets (tests/test_torch_kernels.py).
+Change kernel and model together.
 
 The Pallas kernel runs jitted, where XLA contracts an FMA that moves a
 float pair on the IoU threshold by one ulp (test_torch_decode_nms.py), so
@@ -24,9 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import NMS_SETS, nms_set, threshold_case
 from densebox_tpu.ops.pallas.nms import greedy_keep_pallas
 from densebox_tpu_torch.ops.kernels import nms as knms
+from kernel_cases import NMS_SETS, nms_set, threshold_case
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 LANES = np.arange(32, dtype=np.uint64)
 ONE = np.uint64(1)

@@ -29,6 +29,7 @@ from densebox_tpu_torch.ops.kernels.ohem import (BISECT_ITERS, LIST_CAP,
                                                  staged_threshold)
 from densebox_tpu_torch.ops.ohem import densebox_loss, ohem_mask
 from test_torch_kernels import ohem_case
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 
 def kernel_uniforms(key, b, p):

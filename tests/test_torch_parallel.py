@@ -40,6 +40,7 @@ from densebox_tpu_torch.train import (create_train_state, fit,
 from test_torch_ohem import kernel_uniforms
 from torch_parallel_workers import (fit_rank, global_batches, tiny_cfg,
                                     train_rank)
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 PARAM_BAR, LOSS_BAR = 2e-6, 1e-5        # JAX's tests/test_parallel.py
 CASES = {"det": (0, False, False), "lm4_refine_canvas": (4, True, True)}

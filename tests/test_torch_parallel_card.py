@@ -12,6 +12,7 @@ from densebox_tpu_torch.models import DenseBox
 from densebox_tpu_torch.parallel import make_mesh, make_sharded_train_step
 from densebox_tpu_torch.train import create_train_state, make_train_step
 from torch_parallel_workers import global_batches, tiny_cfg
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 
 @pytest.fixture

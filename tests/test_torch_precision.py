@@ -36,8 +36,10 @@ from densebox_tpu_torch.models import (DenseBox, QuantDenseBox, init_params,
                                        quantize_densebox)
 from densebox_tpu_torch.models import densebox as densebox_module
 from densebox_tpu_torch.models import quant as mq
+from densebox_tpu_torch.ops import upsample as upsample_module
 from densebox_tpu_torch.parallel import spatial
 from densebox_tpu_torch.train import create_train_state, make_train_step
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 ALL_ON = {"cudnn_tf32": True, "matmul_tf32": True, "bf16_reduction": True}
 F32_HELD = {"cudnn_tf32": False, "matmul_tf32": False, "bf16_reduction": True}
@@ -375,14 +377,14 @@ def test_bf16_upsample_rounds_each_product_once(n):
         seen.append((args[0].dtype, device.precision_flags()))
         return real(*args)
 
-    with mock.patch.object(densebox_module.torch, "bmm", bmm):
-        got = densebox_module.upsample2x_align_corners(xb)
+    with mock.patch.object(upsample_module.torch, "bmm", bmm):
+        got = upsample_module.upsample2x_align_corners(xb)
     assert got.dtype == torch.bfloat16
     assert seen == [(torch.float32, F32_HELD)] * 2
     assert device.precision_flags() == ALL_ON
     b, h, w, c = xb.shape
-    aw = densebox_module._interp_matrix(w, 2 * w, xb.device, xb.dtype)
-    ah = densebox_module._interp_matrix(h, 2 * h, xb.device, xb.dtype)
+    aw = upsample_module._interp_matrix(w, 2 * w, xb.device, xb.dtype)
+    ah = upsample_module._interp_matrix(h, 2 * h, xb.device, xb.dtype)
     y = torch.bmm(aw.expand(b * h, 2 * w, w), xb.reshape(b * h, w, c))
     y = torch.bmm(ah.expand(b, 2 * h, h), y.reshape(b, h, 2 * w * c))
     assert torch.equal(got, y.reshape(got.shape))

@@ -37,6 +37,7 @@ from densebox_tpu_torch.ops.kernels.qconv import (DP4A_CHANNEL_BLOCKS,
                                                   kernel_variant, qconv_int8,
                                                   qconv_reference, wgmma_plan)
 from densebox_tpu_torch.ops.kernels.requant import requant_epilogue
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 TURBO = ModelCfg(stem="s2d4", trunk_depth=3, width_mult=0.25)
 MODELS = {

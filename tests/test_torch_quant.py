@@ -44,6 +44,7 @@ from densebox_tpu_torch.ops.kernels.qconv import (conv_accumulator,
 from densebox_tpu_torch.ops.kernels.requant import (requant_epilogue,
                                                     requant_reference)
 from densebox_tpu_torch.serve import DetectServer
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 # The JAX package's own int8 test configs (tests/test_quant.py): the s2d4
 # stem with landmarks and refine, and the conv stem (conv1_1 has Cin = 3).

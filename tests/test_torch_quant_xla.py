@@ -24,6 +24,7 @@ from densebox_tpu.models import DenseBox as JaxDenseBox
 from densebox_tpu.models import quant as jax_quant
 from densebox_tpu_torch.models import QuantDenseBox, qparams_from_jax
 from densebox_tpu_torch.models import quant as port_quant
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 CONFIGS = {
     "det_conv_d4": ModelCfg(stem="conv", trunk_depth=4, width_mult=0.125,

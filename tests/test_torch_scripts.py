@@ -1,5 +1,6 @@
-"""The port's scripts (chip_smoke.py, profile_port.py) and the modules the
-port names, checked without a card.
+"""The port's scripts (chip_smoke.py, profile_port.py, and the kernels' cases
+they share, kernel_cases.py) and the modules the port names, checked
+without a card.
 
 The scripts' device work runs only on a CUDA card. What holds here:
 neither a script nor a module of the package names jax or any module of the
@@ -17,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -24,6 +26,7 @@ if REPO not in sys.path:
 
 SCRIPTS = ["chip_smoke.py", "profile_port.py",
            "tools/probes/box_raster_variants.py"]
+SHARED = ["kernel_cases.py"]            # imported by the scripts, not run
 PACKAGE = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, "densebox_tpu_torch", "**", "*.py"), recursive=True))
 # modules of the JAX package that the port's package may import: none
@@ -39,7 +42,7 @@ def _imported(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", SCRIPTS + PACKAGE)
+@pytest.mark.parametrize("path", SCRIPTS + SHARED + PACKAGE)
 def test_names_no_jax_module(path):
     allowed = PACKAGE_MAY_IMPORT if path in PACKAGE else set()
     bad = [m for m in _imported(path)
@@ -67,7 +70,7 @@ import densebox_tpu_torch.parallel.multihost, densebox_tpu_torch.entry
 import densebox_tpu_torch.export, densebox_tpu_torch.utils.constants
 import densebox_tpu_torch.certify, densebox_tpu_torch.device
 import densebox_tpu_torch.bench, densebox_tpu_torch.loadtest
-import chip_smoke, profile_port
+import chip_smoke, kernel_cases, profile_port
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "jaxlib", "optax", "orbax", "tensorflow",
               "densebox_tpu"))
@@ -82,7 +85,7 @@ def test_port_loads_no_jax():
     reader, the loader and its native core, the image decoder, the
     multi-device layer ``parallel/``, ``entry.py``, ``export.py``, the
     certification ``certify.py``, the bench ``bench.py``, the load test
-    ``loadtest.py`` and both scripts included) in a fresh
+    ``loadtest.py``, both scripts and ``kernel_cases.py`` included) in a fresh
     interpreter loads no module of jax, flax,
     jaxlib, optax, orbax, tensorflow or the JAX package."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
@@ -111,8 +114,8 @@ def test_import_rule_covers_the_command_line_modules():
 _SWITCHES = ("allow_tf32", "allow_bf16_reduced_precision_reduction")
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "profile_port.py"]
-                         + PACKAGE)
+@pytest.mark.parametrize("path", ["chip_smoke.py", "profile_port.py",
+                                  "kernel_cases.py"] + PACKAGE)
 def test_only_the_precision_helper_sets_a_precision_switch(path):
     """No script and no module but ``device.py`` assigns torch's TF32 or
     reduced-bf16-reduction switches: the port keeps the reference's
@@ -132,10 +135,11 @@ def test_only_the_precision_helper_sets_a_precision_switch(path):
 
 
 def test_chip_smoke_drives_the_precision_and_certify_phases():
-    """``main`` runs phases 27 (precision, under torch's flags as it starts)
-    and 28 (the certification tool) after phase 26, then 29 (the bench and
-    the load test), checks the flags at the end, and the docstring lists
-    the three phases."""
+    """``main`` runs phases 21 (precision, under torch's flags as it starts)
+    and 22 (the certification tool) after phase 20, then 23 (the bench and
+    the load test) and 24 (the kernels against their plain versions),
+    checks the flags at the end, and the docstring lists the four
+    phases."""
     import chip_smoke
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
@@ -144,11 +148,12 @@ def test_chip_smoke_drives_the_precision_and_certify_phases():
     calls = sorted((n.lineno, n.col_offset, n.func.id) for n in ast.walk(main)
                    if isinstance(n, ast.Call) and isinstance(n.func, ast.Name))
     order = [name for _, _, name in calls if name.startswith("phase_")]
-    assert order[-4:] == ["phase_export", "phase_precision", "phase_certify",
-                          "phase_bench"]
-    assert " 27. precision" in chip_smoke.__doc__
-    assert " 28. certification" in chip_smoke.__doc__
-    assert " 29. the port's bench and load test" in chip_smoke.__doc__
+    assert order[-5:] == ["phase_export", "phase_precision", "phase_certify",
+                          "phase_bench", "phase_kernels"]
+    assert " 21. precision" in chip_smoke.__doc__
+    assert " 22. certification" in chip_smoke.__doc__
+    assert " 23. the port's bench and load test" in chip_smoke.__doc__
+    assert " 24. the kernels against their plain versions" in chip_smoke.__doc__
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert '"precision_flags_at_end"' in src
     assert "densebox_tpu_torch.certify" in src

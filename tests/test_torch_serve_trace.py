@@ -22,6 +22,7 @@ from densebox_tpu_torch.infer import detect_batch
 from densebox_tpu_torch.models import DenseBox, init_params
 from densebox_tpu_torch.serve import DetectServer
 from densebox_tpu_torch.utils import logging as logmod
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 INFER = InferCfg(scales=(0.5, 1.0), score_thresh=-1e9, topk_per_scale=16,
                  pre_nms_topk=24, max_dets=8)

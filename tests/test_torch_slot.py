@@ -27,6 +27,7 @@ from densebox_tpu.config import ModelCfg
 from densebox_tpu.models import DenseBox as JaxDenseBox
 from densebox_tpu_torch.models import DenseBox, from_flax
 from densebox_tpu_torch.models import densebox as port_densebox
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 CFGS = {
     "paper": ModelCfg(width_mult=0.125),

@@ -24,6 +24,7 @@ from densebox_tpu_torch import kitti_vehicle, malf_face
 from densebox_tpu_torch.infer import detect_batch
 from densebox_tpu_torch.infer.detector import pyramid_maps
 from densebox_tpu_torch.models import DenseBox, init_params
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 BF16 = dict(compute_dtype="bfloat16", param_dtype="bfloat16")
 CELLS = {"paper_bf16": (kitti_vehicle, BF16), "malf_bf16": (malf_face, BF16),

@@ -34,6 +34,7 @@ from densebox_tpu_torch.parallel.multihost import run_processes
 from densebox_tpu_torch.parallel.spatial import (shard_rows,
                                                  shard_upsample_matrix)
 from torch_parallel_workers import spatial_rank
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 STEMS = {"conv": 4, "s2d": 3, "s2d4": 3}          # stem -> trunk depth
 HEADS = {"det": (0, False), "lm3_refine": (3, True)}

@@ -47,6 +47,7 @@ from densebox_tpu_torch.train import (create_train_state, learning_rate,
                                       make_canvas_train_step, make_train_step,
                                       sgd_update)
 from test_torch_ohem import kernel_uniforms
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 
 def _cfgs(landmarks=0, refine=False, **train_kw):
@@ -357,7 +358,7 @@ def test_loss_decreases_over_50_steps(landmarks, refine, canvas):
 def test_step_repeats_and_pins_cudnn_only_inside(landmarks, refine, canvas):
     """The same step from the same parameters, momentum and generator state
     gives the same parameters, momentum and metrics bit for bit (on the
-    card this is what ``repeatable_kernels`` is for: chip_smoke.py phase 19
+    card this is what ``repeatable_kernels`` is for: chip_smoke.py phase 13
     and the GPU test hold it there). The cuDNN flag is set while the model
     runs forward and backward, and is put back after the step."""
     cfg, _ = _cfgs(landmarks, refine)

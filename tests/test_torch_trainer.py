@@ -36,6 +36,7 @@ from densebox_tpu_torch.train import (TrainingDiverged, create_train_state,
 from densebox_tpu_torch.utils.logging import MetricsLogger
 from test_torch_ohem import kernel_uniforms
 from test_torch_train_step import _capture_dropout, _cfgs, _trace
+import torch_threads  # noqa: F401  (sets torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

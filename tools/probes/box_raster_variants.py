@@ -5,10 +5,10 @@
 
 Builds ``box_raster_variants.cu`` (beside this file) with nvcc for sm_90a
 into the port's build directory, runs every variant at the training shape
-(B=32, K=16, M=60; the rows of ``chip_smoke.py`` phase 17), holds each
+(B=32, K=16, M=60; the rows of ``kernel_cases.py:label_rows``), holds each
 against ``rasterize_boxes_reference`` bit for bit (the two floors skip work
 and are not compared), and prints, twice, a dict of variant -> (device time
-in microseconds by ``chip_smoke.py:device_ms``, equal). See the source for
+in microseconds by ``profile_port.py:device_ms``, equal). See the source for
 what each variant is. Without a CUDA card it exits 1 and prints no result.
 """
 
@@ -50,6 +50,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
+    import kernel_cases as cases
+    import profile_port as prof
     from densebox_tpu_torch.ops.kernels import build
     from densebox_tpu_torch.ops.kernels import labels as kl
 
@@ -63,8 +65,8 @@ def main() -> int:
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     print(smoke.card_line(), flush=True)
-    _, b, k, m, num_lm = smoke.RASTER_CASES[0]
-    rows = torch.from_numpy(smoke.label_rows(
+    b, k, m, num_lm = cases.TRAIN_RASTER
+    rows = torch.from_numpy(cases.label_rows(
         np.random.RandomState(17), b, k, m, num_lm)[0]).cuda()
     inv = float(np.float32(0.08))
     want = kl.rasterize_boxes_reference(rows, m, inv)
@@ -85,7 +87,7 @@ def main() -> int:
             equal = variant in (7, 8) or all(
                 smoke.bits_equal(g, w)
                 for g, w in zip((score, loc, ignore), want))
-            out[name] = (round(smoke.device_ms(launch) * 1e3, 3), equal)
+            out[name] = (round(prof.device_ms(launch) * 1e3, 3), equal)
         smoke.emit({"probe": "box_raster_variants", "shape": [b, k, m],
                     "device_us_and_equal": out})
     return 0
